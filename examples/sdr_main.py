@@ -39,8 +39,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 # backend selection must happen BEFORE the package imports: module-level
-# jnp constants would otherwise initialize the default (possibly remote)
-# backend and a later jax.config.update would be too late
+# jnp constants would otherwise initialize the default backend and a later
+# jax.config.update would be too late
 if "--cpu" in sys.argv:
     import jax
 

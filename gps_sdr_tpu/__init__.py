@@ -1,18 +1,19 @@
-"""gps_sdr_tpu — a TPU-native GPS L1 C/A software-defined receiver.
+"""gps_sdr_tpu — a GPS L1 C/A software-defined receiver in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
-MATLAB receiver (KangWelly/Assignment-for-AAE6102_GNSS-SDR, itself built on
+A ground-up JAX/XLA re-design of the capabilities of the reference MATLAB
+receiver (KangWelly/Assignment-for-AAE6102_GNSS-SDR, itself built on
 Bing Xu & L.T. Hsu's GPSSDR_vt): FFT parallel code-phase acquisition,
 DLL/PLL scalar tracking (3-tap and multi-correlator), navigation-data
 decoding, WLS positioning, and vector-tracking EKF positioning — all
-reformulated for TPU hardware:
+reformulated as compiled array programs for an accelerator (an NVIDIA
+GPU; the tests run on JAX's CPU backend):
 
 - fixed-shape sample blocks + fractional NCO accumulators instead of the
   reference's variable-length per-ms reads,
 - channels as a batch axis (`vmap`), time as `lax.scan`,
 - the acquisition PRN×Doppler×block grid as batched FFTs shardable over a
   `jax.sharding.Mesh`,
-- float64 only for phase/time accumulators (scalars), float32/bf16 for the
+- float64 only for phase/time accumulators (scalars), float32 for the
   wideband compute.
 
 Package layout:
@@ -25,7 +26,7 @@ Package layout:
     navdecode     LNAV bit sync / preamble / parity / ephemeris decode
     positioning/  WLS PVT + DOP, Doppler velocity LS, 8-state EKF
     receiver/     pipeline stages: CT (tracking+WLS) and VT (vector/EKF)
-    parallel/     mesh + sharding helpers (multi-chip acquisition/tracking)
+    parallel/     mesh + sharding helpers (multi-device acquisition/tracking)
     analysis/     plots, ACF multipath features, multipath simulator
 """
 

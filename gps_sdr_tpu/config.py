@@ -106,9 +106,8 @@ class TrackConfig:
     # (trackingCT_POS_updated.m:183,294 switches at msToProcessCT_1ms).
     # None keeps the whole stage at pdi=1.
     ct_pdi_switch_ms: Optional[int] = None
-    # Correlator replica engine: "auto" resolves to the fused Pallas
-    # kernel on TPU (ops/pallas_correlator.py) and the exact Q32 NCO
-    # replica elsewhere; "nco"/"shift"/"pallas" force a path.
+    # Correlator replica engine (tracking.resolve_replica): "auto" is the
+    # exact Q32 NCO replica "nco"; "shift" is the nominal-rate table.
     replica: str = "auto"
 
     # Multi-correlator tap grid: the CT-POS stages evaluate a 25-tap grid

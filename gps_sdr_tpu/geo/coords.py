@@ -35,9 +35,9 @@ def xyz2llh(xyz):
     E2 = a * a - b * b
     F = 54.0 * b2 * z2
     G = r2 + (1.0 - e2) * z2 - e2 * E2
-    # NB: written as a product of O(1) ratios — the naive F·r2/G³ overflows
-    # the TPU float64 emulation, which has float32 *range* (f32-pair
-    # representation: full f64-like precision, limited exponent).
+    # NB: written as a product of O(1) ratios — the naive F·r2/G³ reaches
+    # ~1e56 at Earth radius, beyond float32 range, so this form stays
+    # finite in any floating type the geometry may be evaluated in.
     c = (e2 * e2) * 54.0 * b2 * (z2 / G) * (r2 / G) / G
     s = (1.0 + c + jnp.sqrt(c * c + 2.0 * c)) ** (1.0 / 3.0)
     P = F / (3.0 * (s + 1.0 / s + 1.0) ** 2 * G * G)

@@ -17,6 +17,9 @@ interleaved pair.
 
 from __future__ import annotations
 
+import hashlib
+import os
+
 import numpy as np
 
 from gps_sdr_tpu.config import FileConfig
@@ -31,6 +34,7 @@ class IFSampleSource:
 
     def __init__(self, path: str, file_cfg: FileConfig):
         self.cfg = file_cfg
+        self.path = path
         dtype = np.int8 if file_cfg.data_precision == 1 else np.int16
         self._raw = np.memmap(path, dtype=dtype, mode="r")
         self.n_samples = self._raw.size // file_cfg.values_per_sample
@@ -41,9 +45,21 @@ class IFSampleSource:
         """Wrap an in-memory interleaved value array (for synthetic data)."""
         obj = cls.__new__(cls)
         obj.cfg = file_cfg
+        obj.path = None
         obj._raw = np.ascontiguousarray(values)
         obj.n_samples = obj._raw.size // file_cfg.values_per_sample
         return obj
+
+    def identity(self) -> str:
+        """Short tag of this capture's version — path, size and
+        modification time of the file, or the size of an in-memory array
+        — so that artifacts cached from an older capture are never
+        reused for a rewritten one."""
+        if self.path is None:
+            return f"mem{self._raw.size}"
+        st = os.stat(self.path)
+        key = f"{os.path.realpath(self.path)}:{st.st_size}:{st.st_mtime_ns}"
+        return hashlib.sha1(key.encode()).hexdigest()[:10]
 
     def read_values(self, start_sample: int, n_samples: int) -> np.ndarray:
         """Raw interleaved values for [start, start+n) samples, zero-padded."""
@@ -79,12 +95,10 @@ class IFSampleSource:
     def read_iq_values(self, start_sample: int, n_samples: int
                        ) -> np.ndarray:
         """(n, 2) RAW interleaved int8/int16 IQ values — the minimal
-        device-staging payload.  The int→float conversion and any
-        plane/row layout transform happen ON DEVICE
-        (tracking._stage_raw): shipping the native integers instead of
-        f32 planes cuts host→device traffic 4× (2× for int16), which
-        the measured end-to-end run showed to be the pipeline's
-        bottleneck.  DC handling stays in the compute kernels."""
+        device-staging payload.  The int→float conversion happens on the
+        device (tracking._stage_raw): shipping the native integers instead
+        of f32 pairs cuts host→device traffic 4× (2× for int16).  DC
+        handling stays in the compute kernels."""
         v = self.read_values(start_sample, n_samples)
         if self.cfg.data_type == 2:
             return v.reshape(-1, 2)
@@ -92,20 +106,10 @@ class IFSampleSource:
 
     def read_iq_pairs(self, start_sample: int, n_samples: int,
                       remove_dc: bool | None = None) -> np.ndarray:
-        """(n, 2) float32 [re, im] pairs — the device staging format.
-
-        The hosted TPU backend implements no complex-typed ops, so the
-        whole compute path carries I/Q as float32 pairs.
-        """
+        """(n, 2) float32 [re, im] pairs — the tracking engines' sample
+        format (channel windows that the host gathers itself)."""
         c = self.read_complex(start_sample, n_samples, remove_dc)
         return np.stack([c.real, c.imag], axis=-1).astype(np.float32)
-
-    def read_iq_planes(self, start_sample: int, n_samples: int,
-                       remove_dc: bool | None = None) -> np.ndarray:
-        """(2, n) float32 [I plane, Q plane] — the Pallas-correlator
-        staging layout (lane-contiguous per component)."""
-        c = self.read_complex(start_sample, n_samples, remove_dc)
-        return np.stack([c.real, c.imag], axis=0).astype(np.float32)
 
 
 class ChunkPrefetcher:

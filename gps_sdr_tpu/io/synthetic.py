@@ -22,6 +22,7 @@ the data bit on the in-phase arm at lock.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -213,19 +214,29 @@ class GeometrySignal:
 
     def write_file(self, path: str, duration_ms: int, noise_std: float = 0.0,
                    seed: int = 0, chunk_ms: int = 1000) -> None:
-        """Stream the capture to an interleaved int8/int16 file."""
-        from gps_sdr_tpu.io.ifdata import write_if_file  # noqa: F401
+        """Stream the capture to an interleaved int8/int16 file.  The file
+        appears under `path` only once it is complete.  Chunks are
+        independent (noise is seeded per chunk start), so a few threads
+        generate them at once — NumPy's array passes release the GIL."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from gps_sdr_tpu.utils.atomic import atomic_write
+
         dtype = np.int8 if self.cfg.file.data_precision == 1 else np.int16
         info = np.iinfo(dtype)
-        with open(path, "wb") as f:
-            for ms in range(0, duration_ms, chunk_ms):
-                nm = min(chunk_ms, duration_ms - ms)
-                iq = self.generate_ms(ms, nm, noise_std, seed)
-                vals = np.empty(2 * iq.size, dtype=np.float64)
-                vals[0::2] = iq.real
-                vals[1::2] = iq.imag
-                np.clip(np.round(vals), info.min, info.max
-                        ).astype(dtype).tofile(f)
+
+        def chunk(ms):
+            iq = self.generate_ms(ms, min(chunk_ms, duration_ms - ms),
+                                  noise_std, seed)
+            vals = np.empty(2 * iq.size, dtype=np.float64)
+            vals[0::2] = iq.real
+            vals[1::2] = iq.imag
+            return np.clip(np.round(vals), info.min, info.max).astype(dtype)
+
+        workers = min(4, os.cpu_count() or 1)
+        with atomic_write(path) as f, ThreadPoolExecutor(workers) as ex:
+            for vals in ex.map(chunk, range(0, duration_ms, chunk_ms)):
+                vals.tofile(f)
 
     def write_file_fast(self, path: str, duration_ms: int,
                         noise_std: float = 0.0, seed: int = 0,
@@ -243,9 +254,12 @@ class GeometrySignal:
         step) and the code/bit gathers in int32.  Noise uses JAX's
         threefry stream, so sample noise differs from `write_file`'s
         NumPy stream — use only where the capture itself is the product
-        (benchmarks), not for golden comparisons."""
+        (benchmarks), not for golden comparisons.  Runs on the default
+        device; the file appears under `path` only once it is complete."""
         import jax
         import jax.numpy as jnp
+
+        from gps_sdr_tpu.utils.atomic import atomic_write
 
         sig = self.cfg.signal
         spm = sig.samples_per_ms
@@ -301,7 +315,7 @@ class GeometrySignal:
                                      else jnp.int16)
 
         key0 = jax.random.PRNGKey(seed)
-        with open(path, "wb") as f:
+        with atomic_write(path) as f:
             for ms in range(0, duration_ms, chunk_ms):
                 nm = min(chunk_ms, duration_ms - ms)
                 sl = slice(ms, ms + nm)

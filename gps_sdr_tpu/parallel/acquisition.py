@@ -1,23 +1,11 @@
 """Mesh-sharded acquisition: the search grid is data parallel
 (SURVEY.md §2.9; reference hot loop acquisition.m:47-61).
 
-Two shardings of the (P, F, S) power grid are provided:
-
-- ``shard_axis="prn"`` — each device owns P/D code replicas and computes
-  its slice of the grid.  The per-block carrier-mix FFTs are replicated
-  work (every device computes the same (F, fft_len) spectra), which is a
-  ≤ 1/(P/D+1) fraction of the total MACs.
-- ``shard_axis="doppler"`` — each device owns F/D carrier rows; no
-  computation is replicated at all (each device FFTs only its own
-  carrier mixes), at the cost of slightly less even padding (F=41).
-
-Both wrap :func:`acquisition_power_grid_real`, the real-pair pow2
-matmul-DFT formulation — the only grid the hosted TPU backend can
-execute (it implements no complex ops and only pow2 FFT sizes).
-``sharded_acquisition_power`` wraps the complex circular grid for
-CPU-backend use.  The jitted sharded callables are built once per
-geometry and cached, so repeated searches don't re-stage replicated
-inputs or retrace.
+Each device owns P/D code replicas and computes its slice of the
+(P, F, S) power grid of :func:`acquisition_power_grid`, the circular
+complex grid.  The per-block carrier-mix FFTs are replicated work (every
+device computes the same (F, S) spectra), a ≤ 1/(P/D+1) fraction of the
+total FFT work.
 """
 
 from __future__ import annotations
@@ -28,63 +16,15 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from gps_sdr_tpu.acquisition import (acquisition_power_grid,
-                                     acquisition_power_grid_real)
+from gps_sdr_tpu.acquisition import acquisition_power_grid
 from gps_sdr_tpu.parallel.mesh import AXIS
 
 
-def sharded_acquisition_power_real(mesh: Mesh, prn_chunk: int = 8,
-                                   shard_axis: str = "prn"):
-    """Returns power_fn(blocks2, carriers2, code_fft, fft_len, s_out) →
-    (P, F, S) float32, computed with one grid axis sharded over `mesh`.
-
-    Argument shapes match :func:`acquisition_power_grid_real`
-    (real-pair [.., 2] arrays); drop-in for
-    ``run_acquisition(power_fn=…)`` on the pow2/TPU path.
-    """
-    if shard_axis not in ("prn", "doppler"):
-        raise ValueError(f"shard_axis must be 'prn' or 'doppler', "
-                         f"got {shard_axis!r}")
-    ndev = mesh.shape[AXIS]
-    cache = {}
-
-    def build(fft_len: int, s_out: int):
-        inner = functools.partial(acquisition_power_grid_real,
-                                  fft_len=fft_len, s_out=s_out,
-                                  prn_chunk=prn_chunk)
-        if shard_axis == "prn":
-            in_specs = (P(None, None, None), P(None, None, None),
-                        P(AXIS, None, None))
-            out_specs = P(AXIS, None, None)
-        else:
-            in_specs = (P(None, None, None), P(AXIS, None, None),
-                        P(None, None, None))
-            out_specs = P(None, AXIS, None)
-        return jax.jit(jax.shard_map(inner, mesh=mesh, in_specs=in_specs,
-                                     out_specs=out_specs, check_vma=False))
-
-    def fn(blocks2, carriers2, code_fft, fft_len, s_out):
-        p, f = code_fft.shape[0], carriers2.shape[0]
-        if shard_axis == "prn":
-            pad = (-p) % ndev
-            code_fft = jnp.pad(code_fft, ((0, pad), (0, 0), (0, 0)))
-        else:
-            pad = (-f) % ndev
-            carriers2 = jnp.pad(carriers2, ((0, pad), (0, 0), (0, 0)))
-        key = (int(fft_len), int(s_out))
-        if key not in cache:
-            cache[key] = build(*key)
-        out = cache[key](blocks2, carriers2, code_fft)
-        return out[:p, :f]
-
-    return fn
-
-
 def sharded_acquisition_power(mesh: Mesh, prn_chunk: int = 8):
-    """PRN-sharded wrapper of the complex circular grid
-    (:func:`acquisition_power_grid`) — for CPU-backend meshes; the hosted
-    TPU backend cannot execute complex FFTs (use
-    :func:`sharded_acquisition_power_real` there)."""
+    """Returns power_fn(blocks, carriers, code_fft) → (P, F, S) float32,
+    the circular grid with its PRN axis sharded over `mesh` (P is padded
+    to a multiple of the mesh size and the padding sliced off); drop-in
+    for ``run_acquisition(power_fn=…)``."""
     ndev = mesh.shape[AXIS]
     inner = functools.partial(acquisition_power_grid, prn_chunk=prn_chunk)
     shard_fn = jax.jit(jax.shard_map(

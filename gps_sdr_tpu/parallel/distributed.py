@@ -1,12 +1,12 @@
-"""Multi-PROCESS execution: the true multi-host code path.
+"""Multi-PROCESS execution harness on the CPU backend.
 
-Round-4 VERDICT weak #3: every multi-device result so far ran on a
-single-process virtual mesh — `jax.distributed` process groups,
-cross-process collectives, and host-local IF ingest had never been
-exercised.  This module runs the production sharded stages on a mesh
-that SPANS OS processes (the same code path a real multi-host TPU pod
-uses: per-process local devices, a global mesh, collectives crossing
-the process boundary — Gloo on CPU here, ICI/DCN on hardware):
+This module runs the production sharded stages on a mesh that SPANS OS
+processes under `jax.distributed` — per-process local devices, a global
+mesh, collectives crossing the process boundary over Gloo.  It is a
+CPU-only harness: its workers force `jax_platforms="cpu"` and never open
+an accelerator, so it checks the multi-process code path (process
+groups, cross-process collectives, host-local IF ingest), not device
+collectives:
 
 - **track**: `parallel.tracking.sharded_track_scan` with the channel
   axis split across two processes' devices; each process's shard must
@@ -149,7 +149,7 @@ def _leg_track(mesh, pid, nproc):
     start_g = host_local_array_to_global_array(np.int64(0), mesh, P())
     fn = sharded_track_scan(mesh, params, n_steps, float(cfg.signal.fs),
                             blk, float(cfg.signal.code_freq_basis),
-                            margin, 2)
+                            margin)
     _, rec = fn(raw_g, start_g, st_g, tab_g)
     ok = True
     for k, v in rec.items():
@@ -204,7 +204,7 @@ def _vt_fixture(n_ch):
     cfg = _small_cfg()
     S = cfg.signal.samples_per_ms
     blk = -(-(S + 256) // 128) * 128
-    params = VTParams(replica="nco")
+    params = VTParams()
     rng = np.random.default_rng(3)
     eph = Ephemeris(**{
         k: jnp.asarray(np.full(n_ch, v, np.float64))
@@ -271,7 +271,7 @@ def _leg_vt(mesh, pid, nproc):
 
     _, ref = vt_scan(jnp.asarray(raw_np), jnp.int64(0), state,
                      jnp.asarray(tables), eph, alpha, beta, params,
-                     n_steps, *args, 0)
+                     n_steps, *args)
     ref = {k: np.asarray(v) for k, v in ref.items()}
 
     lo, hi = pid * n_ch // nproc, (pid + 1) * n_ch // nproc
@@ -286,7 +286,7 @@ def _leg_vt(mesh, pid, nproc):
         f: shard(getattr(state, f), getattr(_STATE_SPEC, f))
         for f in VTState._fields})
     eph_g = type(eph)(*[shard(f, P(AXIS)) for f in eph])
-    fn = sharded_vt_scan(mesh, params, n_steps, *args, 0, n_ch, 2)
+    fn = sharded_vt_scan(mesh, params, n_steps, *args, n_ch)
     _, rec = fn(shard(raw_np, P()), shard(np.int64(0), P()), st_g,
                 shard(tables, P(AXIS, None)), eph_g,
                 shard(np.asarray(alpha), P()), shard(np.asarray(beta), P()))

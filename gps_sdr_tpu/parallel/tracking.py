@@ -28,12 +28,10 @@ from gps_sdr_tpu.tracking import TrackParams, TrackState, track_scan
 @functools.lru_cache(maxsize=64)
 def sharded_track_scan(mesh: Mesh, params: TrackParams, n_steps: int,
                        fs: float, blk: int, code_freq_basis: float,
-                       margin: int = 0, table_ndim: int = 2):
+                       margin: int = 0):
     """Returns fn(raw, chunk_start, state, chip_tables) with the channel
     axis of `state`/`chip_tables` sharded over the mesh.  Channel count
     must be a multiple of the mesh size (see `pad_channels`).
-    `table_ndim` is the chip-table rank: 2 for the nco/shift replicas,
-    3 for the pallas (N, rows, 128) layout.
 
     lru_cached on the full static signature (Mesh and the frozen
     TrackParams are hashable) so repeated `run_tracking` calls in one
@@ -52,10 +50,9 @@ def sharded_track_scan(mesh: Mesh, params: TrackParams, n_steps: int,
                     carr_freq=P(None, AXIS), num_sample=P(None, AXIS),
                     rem_chip=P(None, AXIS), rem_phase=P(None, AXIS),
                     absolute_sample=P(None, AXIS))
-    table_spec = P(*([AXIS] + [None] * (table_ndim - 1)))
     fn = jax.shard_map(
         inner, mesh=mesh,
-        in_specs=(P(), P(), state_spec, table_spec),
+        in_specs=(P(), P(), state_spec, P(AXIS, None)),
         out_specs=(state_spec, rec_spec), check_vma=False)
     return jax.jit(fn)
 

@@ -12,7 +12,7 @@ per-channel and shards cleanly over devices.
 entry: the channel axis of the scan state / chip tables / ephemeris is
 padded to a multiple of the mesh size and the whole `vt_scan` runs
 inside `shard_map`.  Per step each device `all_gather`s the per-channel
-measurement contributions (~10 f32 per channel over ICI, at the
+measurement contributions (~10 f32 per channel, at the
 receiver's natural 1 ms sync point) and applies the IDENTICAL
 replicated Joseph-form EKF update — so the sharded run is
 **bit-identical** to the single-device scan at any device count
@@ -20,8 +20,9 @@ replicated Joseph-form EKF update — so the sharded run is
 tracking and WLS epoch paths give.  (An information-form psum —
 HᵀR⁻¹H (8×8), HᵀR⁻¹z (8,) — would move marginally fewer bytes but
 compute a numerically DIFFERENT f32 update per device count; with ≤32
-channels the gather payload is ≲1 KB/ms either way, far below ICI
-latency·bandwidth, so the bit-stable formulation wins.)
+channels the gather payload is ≲1 KB/ms either way, so collective
+latency, not bandwidth, sets its cost and the bit-stable formulation
+wins.)
 """
 
 from __future__ import annotations
@@ -62,8 +63,7 @@ def _rec_spec(keys):
 @functools.lru_cache(maxsize=64)
 def sharded_vt_scan(mesh: Mesh, params: VTParams, n_steps: int, fs: float,
                     blk: int, f_if: float, fc: float,
-                    code_freq_basis: float, doy: int, margin: int,
-                    n_real: int, table_ndim: int = 2):
+                    code_freq_basis: float, doy: int, n_real: int):
     """Returns fn(raw, chunk_start, state, chip_tables, eph, alpha, beta)
     with the channel axis sharded over `mesh` (channel count must be a
     multiple of mesh.size — see `pad_vt_state`; `n_real` is the real
@@ -74,15 +74,15 @@ def sharded_vt_scan(mesh: Mesh, params: VTParams, n_steps: int, fs: float,
     def inner(raw, chunk_start, state, chip_tables, eph, alpha, beta):
         return vt_scan(raw, chunk_start, state, chip_tables, eph, alpha,
                        beta, params, n_steps, fs, blk, f_if, fc,
-                       code_freq_basis, doy, margin, axis_name=AXIS,
+                       code_freq_basis, doy, axis_name=AXIS,
                        n_real=n_real)
 
-    table_spec = P(*([AXIS] + [None] * (table_ndim - 1)))
     from gps_sdr_tpu.geo.ephemeris import Ephemeris
     eph_spec = Ephemeris(*([P(AXIS)] * len(Ephemeris._fields)))
     fn = jax.shard_map(
         inner, mesh=mesh,
-        in_specs=(P(), P(), _STATE_SPEC, table_spec, eph_spec, P(), P()),
+        in_specs=(P(), P(), _STATE_SPEC, P(AXIS, None), eph_spec, P(),
+                  P()),
         out_specs=(_STATE_SPEC, _rec_spec(_REC_KEYS)), check_vma=False)
     return jax.jit(fn)
 

@@ -5,11 +5,14 @@ acquisition → eph tracking → nav decode → usable-SV filter →
 CT positioning → (optionally) VT positioning, with every stage output
 checkpointed to disk and skipped when the artifact already exists
 (SDR_main.m:21-27,34-61 cache guards).  Artifacts are .npz/.pkl files
-with the schemas of SURVEY.md §4.
+with the schemas of SURVEY.md §4, named after the capture's identity
+(`IFSampleSource.identity`), written atomically, and built by one process
+at a time when several share an artifact directory.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -26,6 +29,7 @@ from gps_sdr_tpu.io.ifdata import IFSampleSource
 from gps_sdr_tpu.receiver.ct import NavSolutions, run_ct_positioning
 from gps_sdr_tpu.tracking import (TrackParams, TrackRecords, init_track_state,
                                   run_tracking)
+from gps_sdr_tpu.utils.atomic import atomic_write, file_lock
 
 _REC_FIELDS = ("corr", "code_err", "carr_err", "code_freq", "carr_freq",
                "num_sample", "rem_chip", "rem_phase", "absolute_sample")
@@ -48,11 +52,12 @@ def detect_bit_transition(p_i: np.ndarray, min_index: int = 600) -> int:
 class Receiver:
     """Staged receiver with artifact caching.
 
-    Stage artifacts (mirroring SDR_main.m's .mat files):
-      acquired_{name}_{skip}.npz    Acquired{sv,SNR,Doppler,codedelay,fineFreq}
-      tckeph_{name}.npz             per-ms tracking records for nav decode
-      eph_{name}.pkl                {prn: EphemerisRecord} + sbf{nav1,sfb1}
-      tckct_{name}.npz / navct_{name}.npz   CT-POS records + WLS solutions
+    Stage artifacts (mirroring SDR_main.m's .mat files), with
+    key = {name}_{capture identity}:
+      acquired_{key}_{skip}.npz    Acquired{sv,SNR,Doppler,codedelay,fineFreq}
+      tckeph_{key}.npz             per-ms tracking records for nav decode
+      eph_{key}.pkl                {prn: EphemerisRecord} + sbf{nav1,sfb1}
+      tckct_… / navct_…            CT-POS records + WLS solutions
     """
 
     def __init__(self, cfg: ReceiverConfig, source: IFSampleSource,
@@ -70,21 +75,21 @@ class Receiver:
         bit-identical to single-device)."""
         import jax
 
+        from gps_sdr_tpu.utils.jit_cache import enable_compilation_cache
+
         self.cfg = cfg
         self.source = source
         self.dir = artifact_dir
+        # artifacts of another (or a rewritten) capture under the same
+        # name never match this key
+        self.key = f"{cfg.file.name}_{source.identity()}"
         if mesh == "auto":
             from gps_sdr_tpu.parallel.mesh import make_mesh
             mesh = make_mesh() if len(jax.devices()) > 1 else None
         self.mesh = mesh
         if artifact_dir:
             os.makedirs(artifact_dir, exist_ok=True)
-            # compiled-executable cache next to the stage artifacts:
-            # repeat runs (and every process after the first) skip the
-            # cold XLA/Mosaic compiles (utils/jit_cache.py)
-            from gps_sdr_tpu.utils.jit_cache import enable_compilation_cache
-            enable_compilation_cache(os.path.join(artifact_dir,
-                                                  "jax_cache"))
+        enable_compilation_cache()
         self._acq: Optional[AcquisitionResult] = None
         self._eph_records: Optional[TrackRecords] = None
         self._eph = None
@@ -100,11 +105,30 @@ class Receiver:
         p = self._path(stem)
         return p is not None and os.path.exists(p)
 
-    @staticmethod
-    def _save_records(path: str, rec: TrackRecords) -> None:
-        np.savez_compressed(
-            path, i_early=rec.i_early, i_prompt=rec.i_prompt,
-            i_late=rec.i_late, **{f: getattr(rec, f) for f in _REC_FIELDS})
+    def _stage(self, stem: str):
+        """Hold the artifact's lock while a stage checks for and builds
+        it, so processes sharing the directory build it once."""
+        p = self._path(stem)
+        return file_lock(p) if p else contextlib.nullcontext()
+
+    def _save_npz(self, stem: str, **arrays) -> None:
+        with atomic_write(self._path(stem)) as f:
+            np.savez(f, **arrays)
+
+    def _save_pickle(self, stem: str, obj) -> None:
+        with atomic_write(self._path(stem)) as f:
+            pickle.dump(obj, f)
+
+    def _load_pickle(self, stem: str):
+        with open(self._path(stem), "rb") as f:
+            return pickle.load(f)
+
+    def _save_records(self, stem: str, rec: TrackRecords) -> None:
+        with atomic_write(self._path(stem)) as f:
+            np.savez_compressed(
+                f, i_early=rec.i_early, i_prompt=rec.i_prompt,
+                i_late=rec.i_late,
+                **{f_: getattr(rec, f_) for f_ in _REC_FIELDS})
 
     @staticmethod
     def _load_records(path: str) -> TrackRecords:
@@ -120,27 +144,23 @@ class Receiver:
         if self._acq is not None:
             return self._acq
         if power_fn is None and self.mesh is not None:
-            from gps_sdr_tpu.acquisition import _use_pow2
             from gps_sdr_tpu.parallel.acquisition import (
-                sharded_acquisition_power, sharded_acquisition_power_real)
-            power_fn = (sharded_acquisition_power_real(self.mesh)
-                        if _use_pow2("auto")
-                        else sharded_acquisition_power(self.mesh))
-        stem = f"acquired_{self.cfg.file.name}_{self.cfg.file.skip_ms}.npz"
-        if self._have(stem):
-            z = np.load(self._path(stem))
-            self._acq = AcquisitionResult(
-                sv=z["sv"], snr_db=z["snr_db"], doppler_hz=z["doppler_hz"],
-                code_delay=z["code_delay"], fine_freq_hz=z["fine_freq_hz"])
-        else:
-            self._acq = run_acquisition(self.source, self.cfg,
-                                        power_fn=power_fn)
-            if self.dir:
-                np.savez(self._path(stem), sv=self._acq.sv,
-                         snr_db=self._acq.snr_db,
-                         doppler_hz=self._acq.doppler_hz,
-                         code_delay=self._acq.code_delay,
-                         fine_freq_hz=self._acq.fine_freq_hz)
+                sharded_acquisition_power)
+            power_fn = sharded_acquisition_power(self.mesh)
+        stem = f"acquired_{self.key}_{self.cfg.file.skip_ms}.npz"
+        with self._stage(stem):
+            if self._have(stem):
+                z = np.load(self._path(stem))
+                self._acq = AcquisitionResult(
+                    sv=z["sv"], snr_db=z["snr_db"],
+                    doppler_hz=z["doppler_hz"],
+                    code_delay=z["code_delay"],
+                    fine_freq_hz=z["fine_freq_hz"])
+            else:
+                self._acq = run_acquisition(self.source, self.cfg,
+                                            power_fn=power_fn)
+                if self.dir:
+                    self._save_npz(stem, **dataclasses.asdict(self._acq))
         return self._acq
 
     def track_for_eph(self, n_ms: Optional[int] = None,
@@ -154,10 +174,18 @@ class Receiver:
         """
         if self._eph_records is not None:
             return self._eph_records
-        stem = f"tckeph_{self.cfg.file.name}.npz"
-        if self._have(stem):
-            self._eph_records = self._load_records(self._path(stem))
-            return self._eph_records
+        stem = f"tckeph_{self.key}.npz"
+        with self._stage(stem):
+            if self._have(stem):
+                self._eph_records = self._load_records(self._path(stem))
+            else:
+                self._eph_records = self._track_for_eph(n_ms, chunk_ms,
+                                                        n_segments)
+                if self.dir:
+                    self._save_records(stem, self._eph_records)
+        return self._eph_records
+
+    def _track_for_eph(self, n_ms, chunk_ms, n_segments) -> TrackRecords:
         acq = self.acquisition()
         n_ms = n_ms or (self.cfg.track.ms_eph_1ms + self.cfg.track.ms_eph_10ms)
         params = TrackParams.epl(self.cfg)
@@ -174,10 +202,7 @@ class Receiver:
             rec, _ = run_tracking(self.source, self.cfg, list(acq.sv),
                                   state, params, n_ms, chunk_ms=chunk_ms,
                                   mesh=self.mesh)
-        self._eph_records = rec
-        if self.dir:
-            self._save_records(self._path(stem), rec)
-        return self._eph_records
+        return rec
 
     def track_for_eph_reference(self, chunk_ms: int = 1000,
                                 min_transition_index: int = 600
@@ -205,13 +230,22 @@ class Receiver:
         ran the plain schedule) loads it instead of re-tracking
         (SDR_main.m:34-38's trackFlag skip).
         """
-        cfg = self.cfg
         if self._eph_records is not None:
             return self._eph_records
-        stem = f"tckeph_{cfg.file.name}.npz"
-        if self._have(stem):
-            self._eph_records = self._load_records(self._path(stem))
-            return self._eph_records
+        stem = f"tckeph_{self.key}.npz"
+        with self._stage(stem):
+            if self._have(stem):
+                self._eph_records = self._load_records(self._path(stem))
+            else:
+                self._eph_records = self._track_for_eph_reference(
+                    chunk_ms, min_transition_index)
+                if self.dir:
+                    self._save_records(stem, self._eph_records)
+        return self._eph_records
+
+    def _track_for_eph_reference(self, chunk_ms: int,
+                                 min_transition_index: int) -> TrackRecords:
+        cfg = self.cfg
         acq = self.acquisition()
         S = cfg.signal.samples_per_ms
         n1, n10 = cfg.track.ms_eph_1ms, cfg.track.ms_eph_10ms
@@ -264,44 +298,42 @@ class Receiver:
                     a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
                 rows.append(a)
             merged.append(np.stack(rows, axis=1))
-        self._eph_records = TrackRecords(*merged)
-        if self.dir:
-            self._save_records(self._path(f"tckeph_{cfg.file.name}.npz"),
-                               self._eph_records)
-        return self._eph_records
+        return TrackRecords(*merged)
 
     def countinx(self, min_transition_index: int = 600) -> np.ndarray:
         """Per-channel first-bit-transition offsets, ordered like acq.sv
         (the reference persists these as countinx.mat, trackingCT.m:530,
         and the CT-POS stage keys its pdi switch on them)."""
         acq = self.acquisition()
-        stem = f"countinx_{self.cfg.file.name}.npz"
-        if self._have(stem):
-            return np.load(self._path(stem))["countinx"]
-        rec = self.track_for_eph()
-        cnt = np.array([detect_bit_transition(
-            rec.p_i[:, ch], min_index=min_transition_index)
-            for ch in range(len(acq.sv))])
-        if self.dir:
-            np.savez(self._path(stem), sv=acq.sv, countinx=cnt)
+        stem = f"countinx_{self.key}.npz"
+        with self._stage(stem):
+            if self._have(stem):
+                return np.load(self._path(stem))["countinx"]
+            rec = self.track_for_eph()
+            cnt = np.array([detect_bit_transition(
+                rec.p_i[:, ch], min_index=min_transition_index)
+                for ch in range(len(acq.sv))])
+            if self.dir:
+                self._save_npz(stem, sv=acq.sv, countinx=cnt)
         return cnt
 
     def decode(self, start_offset_ms: int = 3000):
         """Stage 3 (SDR_main.m:54): nav decode → ephemerides + sbf."""
         if self._eph is not None:
             return self._eph, self._sbf
-        stem = f"eph_{self.cfg.file.name}.pkl"
-        if self._have(stem):
-            with open(self._path(stem), "rb") as f:
-                self._eph, self._sbf = pickle.load(f)
-            return self._eph, self._sbf
-        acq = self.acquisition()
-        rec = self.track_for_eph()
-        streams = {int(p): rec.p_i[:, ch] for ch, p in enumerate(acq.sv)}
-        self._eph, self._sbf = navdecode.decode_all(streams, start_offset_ms)
-        if self.dir:
-            with open(self._path(stem), "wb") as f:
-                pickle.dump((self._eph, self._sbf), f)
+        stem = f"eph_{self.key}.pkl"
+        with self._stage(stem):
+            if self._have(stem):
+                self._eph, self._sbf = self._load_pickle(stem)
+                return self._eph, self._sbf
+            acq = self.acquisition()
+            rec = self.track_for_eph()
+            streams = {int(p): rec.p_i[:, ch]
+                       for ch, p in enumerate(acq.sv)}
+            self._eph, self._sbf = navdecode.decode_all(streams,
+                                                        start_offset_ms)
+            if self.dir:
+                self._save_pickle(stem, (self._eph, self._sbf))
         return self._eph, self._sbf
 
     def usable_svs(self):
@@ -310,15 +342,15 @@ class Receiver:
         are persisted as the nAcquired-style artifact (findPosSV.m:42)."""
         eph, _ = self.decode()
         svs = navdecode.usable_svs(eph)
-        stem = (f"nacquired_{self.cfg.file.name}"
-                f"_{self.cfg.file.skip_ms}.npz")
+        stem = f"nacquired_{self.key}_{self.cfg.file.skip_ms}.npz"
         if self.dir and not self._have(stem):
             acq = self.acquisition()
             ch = [acq.channel_index(p) for p in svs]
-            np.savez(self._path(stem), sv=np.asarray(svs),
-                     snr_db=acq.snr_db[ch], doppler_hz=acq.doppler_hz[ch],
-                     code_delay=acq.code_delay[ch],
-                     fine_freq_hz=acq.fine_freq_hz[ch])
+            self._save_npz(stem, sv=np.asarray(svs),
+                           snr_db=acq.snr_db[ch],
+                           doppler_hz=acq.doppler_hz[ch],
+                           code_delay=acq.code_delay[ch],
+                           fine_freq_hz=acq.fine_freq_hz[ch])
         return svs
 
     @staticmethod
@@ -355,7 +387,7 @@ class Receiver:
             pdi_switch_ms = cfg.track.ct_pdi_switch_ms
         n_ms = n_ms or cfg.track.ms_ct_pos
         tag = "mc" if multicorr else "epl"
-        key = (f"{tag}_{cfg.file.name}_{n_ms}"
+        key = (f"{tag}_{self.key}_{n_ms}"
                + (f"_sw{pdi_switch_ms}" if pdi_switch_ms else "")
                + ("" if countinx is None else
                   "_c" + "_".join(str(int(c)) for c in countinx))
@@ -372,67 +404,68 @@ class Receiver:
         if init_pos_ecef is None:
             init_pos_ecef = np.asarray(llh2xyz(np.asarray(
                 cfg.solu.truth_llh)))
-        if self._have(stem_t) and self._have(stem_n):
-            with open(self._path(stem_n), "rb") as f:
-                nav = pickle.load(f)
-            return self._load_records(self._path(stem_t)), nav
+        with self._stage(stem_n):
+            if self._have(stem_t) and self._have(stem_n):
+                return (self._load_records(self._path(stem_t)),
+                        self._load_pickle(stem_n))
 
-        chans = [acq.channel_index(p) for p in pos_svs]
-        state = init_track_state(cfg, acq.code_delay[chans],
-                                 acq.fine_freq_hz[chans])
-        mk = (TrackParams.pos_multicorr if multicorr
-              else TrackParams.pos_epl)
-        params1 = mk(cfg)
-        if pdi_switch_ms is None:
-            rec, _ = run_tracking(self.source, cfg, pos_svs, state,
-                                  params1, n_ms, chunk_ms=chunk_ms,
-                                  mesh=self.mesh)
-            pdi_rows: np.ndarray | int = 1
-        else:
-            from gps_sdr_tpu.tracking import state_from_records
-            cnt = np.asarray(countinx if countinx is not None
-                             else self.countinx()[chans])
-            sw = pdi_switch_ms + cnt               # (N,) rows at pdi=1
-            sw_max, sw_min = int(sw.max()), int(sw.min())
-            if n_ms <= sw_max:
-                raise ValueError(f"n_ms={n_ms} rows must exceed the last "
-                                 f"pdi switch at row {sw_max}")
-            rec1, _ = run_tracking(self.source, cfg, pos_svs, state,
-                                   params1, sw_max, chunk_ms=chunk_ms,
-                                   mesh=self.mesh)
-            st2 = state_from_records(rec1, sw - 1,
-                                     acq.fine_freq_hz[chans],
-                                     params1.dll_freq_sign,
-                                     cfg.signal.code_freq_basis)
-            # run_tracking counts SIGNAL milliseconds: (n_ms − sw_min)·10
-            # signal-ms at pdi=10 is exactly (n_ms − sw_min) blocks =
-            # record rows — one row per block, the most any channel's
-            # merge below consumes (n_ms − sw[ch] rows; no over-tracking)
-            rec2, _ = run_tracking(self.source, cfg, pos_svs, st2,
-                                   mk(cfg, pdi_ms=10),
-                                   (n_ms - sw_min) * 10, chunk_ms=chunk_ms,
-                                   mesh=self.mesh)
-            merged = []
-            n_ch = len(pos_svs)
-            for f in _REC_FIELDS:
-                a, b = getattr(rec1, f), getattr(rec2, f)
-                merged.append(np.stack(
-                    [np.concatenate([a[:sw[ch], ch], b[:n_ms - sw[ch], ch]])
-                     for ch in range(n_ch)], axis=1))
-            rec = TrackRecords(*merged, i_early=params1.i_early,
-                               i_prompt=params1.i_prompt,
-                               i_late=params1.i_late)
-            rows = np.arange(n_ms)[:, None]
-            pdi_rows = np.where(rows < sw[None, :], 1, 10)
-        nav = run_ct_positioning(rec, cfg, pos_svs, eph, sbf,
-                                 init_pos_ecef,
-                                 pdi_ms_per_block=pdi_rows,
-                                 mesh=self.mesh)
-        if self.dir:
-            self._save_records(self._path(stem_t), rec)
-            with open(self._path(stem_n), "wb") as f:
-                pickle.dump(nav, f)
-        return rec, nav
+            chans = [acq.channel_index(p) for p in pos_svs]
+            state = init_track_state(cfg, acq.code_delay[chans],
+                                     acq.fine_freq_hz[chans])
+            mk = (TrackParams.pos_multicorr if multicorr
+                  else TrackParams.pos_epl)
+            params1 = mk(cfg)
+            if pdi_switch_ms is None:
+                rec, _ = run_tracking(self.source, cfg, pos_svs, state,
+                                      params1, n_ms, chunk_ms=chunk_ms,
+                                      mesh=self.mesh)
+                pdi_rows: np.ndarray | int = 1
+            else:
+                from gps_sdr_tpu.tracking import state_from_records
+                cnt = np.asarray(countinx if countinx is not None
+                                 else self.countinx()[chans])
+                sw = pdi_switch_ms + cnt            # (N,) rows at pdi=1
+                sw_max, sw_min = int(sw.max()), int(sw.min())
+                if n_ms <= sw_max:
+                    raise ValueError(f"n_ms={n_ms} rows must exceed the "
+                                     f"last pdi switch at row {sw_max}")
+                rec1, _ = run_tracking(self.source, cfg, pos_svs, state,
+                                       params1, sw_max, chunk_ms=chunk_ms,
+                                       mesh=self.mesh)
+                st2 = state_from_records(rec1, sw - 1,
+                                         acq.fine_freq_hz[chans],
+                                         params1.dll_freq_sign,
+                                         cfg.signal.code_freq_basis)
+                # run_tracking counts SIGNAL milliseconds:
+                # (n_ms − sw_min)·10 signal-ms at pdi=10 is exactly
+                # (n_ms − sw_min) blocks = record rows — one row per block,
+                # the most any channel's merge below consumes
+                # (n_ms − sw[ch] rows; no over-tracking)
+                rec2, _ = run_tracking(self.source, cfg, pos_svs, st2,
+                                       mk(cfg, pdi_ms=10),
+                                       (n_ms - sw_min) * 10,
+                                       chunk_ms=chunk_ms, mesh=self.mesh)
+                merged = []
+                n_ch = len(pos_svs)
+                for f in _REC_FIELDS:
+                    a, b = getattr(rec1, f), getattr(rec2, f)
+                    merged.append(np.stack(
+                        [np.concatenate([a[:sw[ch], ch],
+                                         b[:n_ms - sw[ch], ch]])
+                         for ch in range(n_ch)], axis=1))
+                rec = TrackRecords(*merged, i_early=params1.i_early,
+                                   i_prompt=params1.i_prompt,
+                                   i_late=params1.i_late)
+                rows = np.arange(n_ms)[:, None]
+                pdi_rows = np.where(rows < sw[None, :], 1, 10)
+            nav = run_ct_positioning(rec, cfg, pos_svs, eph, sbf,
+                                     init_pos_ecef,
+                                     pdi_ms_per_block=pdi_rows,
+                                     mesh=self.mesh)
+            if self.dir:
+                self._save_records(stem_t, rec)
+                self._save_pickle(stem_n, nav)
+            return rec, nav
 
     def ct_position_kf(self, n_ms: Optional[int] = None,
                        init_pos_ecef: Optional[np.ndarray] = None,
@@ -446,7 +479,7 @@ class Receiver:
 
         cfg = self.cfg
         n_ms = n_ms or cfg.track.ms_ct_pos
-        key = (f"kf_{cfg.file.name}_{n_ms}_{epoch_ms or 'def'}"
+        key = (f"kf_{self.key}_{n_ms}_{epoch_ms or 'def'}"
                f"_{self._init_token(init_pos_ecef)}")
         stem_t, stem_n = f"tckct_{key}.npz", f"navct_{key}.pkl"
         eph, sbf = self.decode()
@@ -457,28 +490,27 @@ class Receiver:
         if init_pos_ecef is None:
             init_pos_ecef = np.asarray(llh2xyz(np.asarray(
                 cfg.solu.truth_llh)))
-        if self._have(stem_t) and self._have(stem_n):
-            with open(self._path(stem_n), "rb") as f:
-                return self._load_records(self._path(stem_t)), pickle.load(f)
-        chans = [acq.channel_index(p) for p in pos_svs]
-        state = init_track_state(cfg, acq.code_delay[chans],
-                                 acq.fine_freq_hz[chans])
-        rec, _ = run_tracking(self.source, cfg, pos_svs, state,
-                              TrackParams.pos_epl(cfg), n_ms,
-                              chunk_ms=chunk_ms, mesh=self.mesh)
-        nav = run_ct_positioning_kf(rec, cfg, pos_svs, eph, sbf,
-                                    init_pos_ecef, epoch_ms=epoch_ms)
-        if self.dir:
-            self._save_records(self._path(stem_t), rec)
-            with open(self._path(stem_n), "wb") as f:
-                pickle.dump(nav, f)
-        return rec, nav
+        with self._stage(stem_n):
+            if self._have(stem_t) and self._have(stem_n):
+                return (self._load_records(self._path(stem_t)),
+                        self._load_pickle(stem_n))
+            chans = [acq.channel_index(p) for p in pos_svs]
+            state = init_track_state(cfg, acq.code_delay[chans],
+                                     acq.fine_freq_hz[chans])
+            rec, _ = run_tracking(self.source, cfg, pos_svs, state,
+                                  TrackParams.pos_epl(cfg), n_ms,
+                                  chunk_ms=chunk_ms, mesh=self.mesh)
+            nav = run_ct_positioning_kf(rec, cfg, pos_svs, eph, sbf,
+                                        init_pos_ecef, epoch_ms=epoch_ms)
+            if self.dir:
+                self._save_records(stem_t, rec)
+                self._save_pickle(stem_n, nav)
+            return rec, nav
 
     def _vt_stem(self, n_ms: Optional[int] = None,
                  ct_n_ms: Optional[int] = None,
                  init_pos_ecef: Optional[np.ndarray] = None,
-                 multicorr: Optional[bool] = None,
-                 replica: str = "auto", **_ignored) -> str:
+                 multicorr: Optional[bool] = None, **_ignored) -> str:
         """Artifact stem of a vt_position result for the given kwargs —
         shared by vt_position's cache and export_mat's has-VT-run
         check."""
@@ -489,16 +521,15 @@ class Receiver:
         # navvt2_: stem bumped when VTTrackRecords gained
         # rem_chip/rem_phase/carr_nco — a pre-bump pickle would restore
         # without the attributes and break export_mat (ADVICE r4)
-        return (f"navvt2_{'mc_' if multicorr else ''}{cfg.file.name}"
+        return (f"navvt2_{'mc_' if multicorr else ''}{self.key}"
                 f"_{n_ms}_{ct_n_ms or 'def'}"
-                + ("" if replica == "auto" else f"_{replica}")
-                + f"_{self._init_token(init_pos_ecef)}.pkl")
+                f"_{self._init_token(init_pos_ecef)}.pkl")
 
     def vt_position(self, n_ms: Optional[int] = None,
                     ct_n_ms: Optional[int] = None,
                     init_pos_ecef: Optional[np.ndarray] = None,
                     multicorr: Optional[bool] = None,
-                    chunk_ms: int = 1000, replica: str = "auto"):
+                    chunk_ms: int = 1000):
         """Stage 6 (SDR_main.m:94-99): vector tracking + EKF, warm-started
         from the CT stage (trackingVT_POS_updated.m:66-70,109-132).
 
@@ -506,12 +537,11 @@ class Receiver:
         (trackingVT_POS_updated_multicorrelator.m:26); default from
         cmn.multicorr_vt (the reference's cmn.mltCorrON(2)).
         With a Receiver mesh, the VDFLL channel axis is sharded over it
-        (parallel/vt.py — bit-identical nav/EKF chain at any device
-        count).  Returns (VTTrackRecords, VTSolutions).
+        (parallel/vt.py — the same nav/EKF chain at any device count:
+        bit-identical on the CPU backend, to f64 round-off on GPUs).
+        Returns (VTTrackRecords, VTSolutions).
         """
-        from gps_sdr_tpu.geo.ephemeris import Ephemeris
-        from gps_sdr_tpu.receiver.vt import (VTParams, init_vt_state,
-                                             run_vector_tracking)
+        from gps_sdr_tpu.receiver.vt import run_vector_tracking
 
         cfg = self.cfg
         if multicorr is None:
@@ -519,18 +549,39 @@ class Receiver:
         n_ms = n_ms or cfg.track.ms_vt
         stem = self._vt_stem(n_ms=n_ms, ct_n_ms=ct_n_ms,
                              init_pos_ecef=init_pos_ecef,
-                             multicorr=multicorr, replica=replica)
-        if self._have(stem):
-            with open(self._path(stem), "rb") as f:
-                return pickle.load(f)
+                             multicorr=multicorr)
+        with self._stage(stem):
+            if self._have(stem):
+                return self._load_pickle(stem)
+            trk, sol, _ = run_vector_tracking(
+                **self.vt_inputs(ct_n_ms, init_pos_ecef, multicorr,
+                                 chunk_ms),
+                n_ms=n_ms, chunk_ms=chunk_ms, mesh=self.mesh)
+            if self.dir:
+                self._save_pickle(stem, (trk, sol))
+        return trk, sol
+
+    def vt_inputs(self, ct_n_ms: Optional[int] = None,
+                  init_pos_ecef: Optional[np.ndarray] = None,
+                  multicorr: Optional[bool] = None, chunk_ms: int = 1000):
+        """The VT stage's warm start from the CT stage: keyword arguments
+        of `receiver.vt.run_vector_tracking` except n_ms/chunk_ms/mesh
+        (source, cfg, prns, eph_struct, state, params, init_pos_ecef)."""
+        from gps_sdr_tpu.geo.ephemeris import Ephemeris
+        from gps_sdr_tpu.receiver.vt import VTParams, init_vt_state
+
+        cfg = self.cfg
+        if multicorr is None:
+            multicorr = cfg.cmn.multicorr_vt
         eph, sbf = self.decode()
         pos_svs = self.usable_svs()
-        if init_pos_ecef is None:
-            init_pos_ecef = np.asarray(llh2xyz(np.asarray(
-                cfg.solu.truth_llh)))
+        # the CT stage's own default init, so its artifact is reused
         ct_rec, ct_nav = self.ct_position(n_ms=ct_n_ms,
                                           init_pos_ecef=init_pos_ecef,
                                           chunk_ms=chunk_ms)
+        if init_pos_ecef is None:
+            init_pos_ecef = np.asarray(llh2xyz(np.asarray(
+                cfg.solu.truth_llh)))
 
         # warm-start PVT from the CT epoch at skiptime_vt
         epoch0 = cfg.file.skiptime_vt_ms // cfg.solu.nav_sol_period_ms - 1
@@ -555,7 +606,7 @@ class Receiver:
         vt_kw = dict(remove_dc=cfg.file.data_precision == 2,
                      pll_bw_hz=cfg.track.pll_bw_hz,
                      pll_damping=cfg.track.pll_damping,
-                     pll_gain=cfg.track.pll_gain, replica=replica)
+                     pll_gain=cfg.track.pll_gain)
         params = (VTParams.multicorr(**vt_kw) if multicorr
                   else VTParams(**vt_kw))
         state = init_vt_state(cfg, ct_rec, list(range(len(pos_svs))),
@@ -564,13 +615,9 @@ class Receiver:
         eph_struct = Ephemeris(**{
             k: np.asarray([eph[p].latest(0)[k] for p in pos_svs])
             for k in Ephemeris._fields})
-        trk, sol, _ = run_vector_tracking(
-            self.source, cfg, pos_svs, eph_struct, state, params, n_ms,
-            init_pos_ecef, chunk_ms=chunk_ms, mesh=self.mesh)
-        if self.dir:
-            with open(self._path(stem), "wb") as f:
-                pickle.dump((trk, sol), f)
-        return trk, sol
+        return dict(source=self.source, cfg=cfg, prns=pos_svs,
+                    eph_struct=eph_struct, state=state, params=params,
+                    init_pos_ecef=init_pos_ecef)
 
     def position(self, **kw):
         """Mode dispatch (SDR_main.m:73-121 on solu.mode / cmn.vtEnable):

@@ -3,7 +3,7 @@
 The reference fuses tracking and WLS in one MATLAB loop
 (`trackingCT_POS_updated.m`), but the coupling is one-directional — the
 WLS result never feeds back into the DLL/PLL (only into the bookkeeping
-`localTime`).  The TPU-native split therefore runs the whole tracking
+`localTime`).  This build therefore runs the whole tracking
 segment as one device scan (tracking.py) and forms the measurement epochs
 from the recorded per-block state afterwards, host-side in float64:
 

@@ -1,6 +1,6 @@
 """Vector tracking + 8-state EKF positioning (VDFLL).
 
-TPU-native re-design of the reference's `trackingVT_POS_updated.m`: the
+A re-design of the reference's `trackingVT_POS_updated.m`: the
 entire vector loop — per-channel correlators, nav-solution-driven code
 NCOs, scalar PLLs, SV ephemeris evaluation, atmospheric corrections, and
 the error-state EKF that couples all channels — is ONE `lax.scan` over ms
@@ -10,8 +10,7 @@ blocks, jitted end to end.  Per step:
 2. transmitTime += numSample/fs (…:181)
 3. SV pos/vel/clock at transmit time — full Kepler once per
    `kepler_update_ms` group head, velocity + central-gravity
-   extrapolation between (the reference re-solves per ms, …:185;
-   f64 is software-emulated on TPU and dominated VT wall time)
+   extrapolation between (the reference re-solves per ms, …:185)
 4. predicted pseudorange with clock/Sagnac/iono/tropo corrections
    (…:208-215) — full f64 chain at the group head, linearized f32
    delta terms per step (error budget in kepler_refresh); iono/tropo
@@ -24,9 +23,8 @@ blocks, jitted end to end.  Per step:
    Z_pr = δτ·c/codeFreq (…:316-321); carrier → pseudorange-rate
    measurement (physically-signed; see note below) (…:379-382)
 9. EKF predict/update on the 8-state error vector
-   [δp(3) δv(3) δb δḃ] in f32 (measurement/error magnitudes are metres;
-   covariance symmetrized each step; only the f64 total state receives
-   the correction), total-state feedback + propagation (…:388-442)
+   [δp(3) δv(3) δb δḃ] in f64 (covariance symmetrized each step),
+   total-state feedback + propagation (…:388-442)
 10. adaptive measurement noise from innovation variance every 200 ms with
     the reference's clamps (…:445-467)
 
@@ -121,22 +119,17 @@ class VTParams:
     r_masked: float = 1e8           # R inflation for gated-out channels —
                                     # an effective no-op deweighting (gain
                                     # contribution ≲1e-8) kept ≤1e8 so the
-                                    # f32 innovation-covariance solve
-                                    # stays inside f32 conditioning even
-                                    # with r_min=0.01 (cond(S) ≲ 1e10)
+                                    # innovation-covariance solve stays
+                                    # well conditioned even with
+                                    # r_min=0.01 (cond(S) ≲ 1e10)
     kepler_update_ms: int = 50      # full Kepler cadence: SV pos/vel/clock
                                     # solved every K ms and extrapolated
                                     # along velocity + central-gravity
                                     # acceleration between (≤1e-7 m over
                                     # 50 ms vs ~0.6 m/s² SV acceleration;
                                     # the reference re-solves per ms,
-                                    # trackingVT_POS_updated.m:185 — in
-                                    # emulated f64 that was the VT
-                                    # throughput bottleneck).  1 = exact
-                                    # per-ms solve
-    replica: str = "auto"           # correlator engine (tracking.py
-                                    # semantics: auto → fused Pallas
-                                    # kernel on TPU, exact NCO elsewhere)
+                                    # trackingVT_POS_updated.m:185).
+                                    # 1 = exact per-ms solve
 
     @staticmethod
     def legacy(**kw) -> "VTParams":
@@ -168,27 +161,24 @@ class VTParams:
 
 @functools.partial(jax.jit, static_argnames=(
     "params", "n_steps", "fs", "blk", "f_if", "fc", "code_freq_basis",
-    "doy", "margin", "axis_name", "n_real", "ablate"))
+    "doy", "axis_name", "n_real", "ablate"))
 def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
             iono_alpha, iono_beta, params: VTParams, n_steps: int, fs: float,
             blk: int, f_if: float, fc: float, code_freq_basis: float,
-            doy: int, margin: int = 0, axis_name: str = None,
+            doy: int, axis_name: str = None,
             n_real: int = None, ablate: str = ""):
     """Run `n_steps` ms of vector tracking inside one raw chunk.
 
-    params.replica selects the correlator engine: "nco" vmaps the exact
-    Q32 replica (raw is (L, 2) pairs, chip_tables (N, 1023)); "pallas"
-    runs the fused in-kernel-DMA bank (raw is (2, R, 128) HBM-resident
-    plane-rows, chip_tables the build_shift_tables_fused layout with
-    its `margin`).
+    The correlators vmap the exact Q32 replica over channels (raw is
+    (L, 2) float32 pairs, chip_tables (N, 1023)).
 
     `axis_name` (set by parallel/vt.sharded_vt_scan, which wraps this in
     shard_map) runs the scan with the CHANNEL axis sharded over a device
     mesh: all per-channel work — correlators, NCOs, scalar PLLs, Kepler,
     atmosphere — stays device-local, and each step all-gathers only the
     per-channel measurement contributions (unit line-of-sight rows at
-    the group head; z_pr/z_prr/validity per ms — ~10 floats/channel over
-    ICI) so every device applies the IDENTICAL replicated 8-state EKF
+    the group head; z_pr/z_prr/validity per ms — ~10 floats/channel)
+    so every device applies the IDENTICAL replicated 8-state EKF
     update (trackingVT_POS_updated.m:388-404, the coupled update,
     distributed).  `n_real` is the global channel count before padding
     (padding channels, appended last, are sliced off the gather so they
@@ -196,7 +186,7 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
     scan at any device count (tests/test_mesh_pipeline.py).
 
     `ablate` is a BENCH-ONLY diagnostic (bench.py's VT per-phase
-    breakdown, round-4 VERDICT weak #2) — it zeroes a stage's outputs
+    breakdown) — it zeroes a stage's outputs
     so XLA dead-code-eliminates that stage's ops, isolating its wall
     cost by subtraction: "no_ekf" removes the gain/solve/Joseph chain,
     "no_geom" additionally removes the predicted-pseudorange/Kepler
@@ -215,11 +205,6 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
         def gather(x):
             return jax.lax.all_gather(x, axis_name, tiled=True)[:n_real]
     taps = jnp.asarray(params.taps, jnp.float64)
-    use_pallas = params.replica == "pallas"
-    if use_pallas:
-        from gps_sdr_tpu.ops.pallas_track import correlator_bank_hbm
-        interpret = jax.default_backend() != "tpu"
-        ntaps = len(params.taps)
     tau1, tau2 = loop_coefficients(params.pll_bw_hz, params.pll_damping,
                                    params.pll_gain)
     dt = params.pdi_ms * 1e-3
@@ -227,17 +212,15 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
 
     F = jnp.eye(8, dtype=jnp.float64)
     F = F.at[0, 3].set(dt).at[1, 4].set(dt).at[2, 5].set(dt).at[6, 7].set(dt)
-    F32 = F.astype(jnp.float32)
-    Q32 = jnp.diag(jnp.asarray(
+    Qn = jnp.diag(jnp.asarray(
         [params.q_pos] * 3 + [params.q_vel] * 3
-        + [params.q_clk, params.q_clkd], jnp.float32))
-    # the EKF covariance loop runs in f32 (state_cov/r_diag/innov_sq_sum
-    # carry f32; symmetrized each step) — measurement and error-state
-    # magnitudes are metres, and f64 on TPU is software-emulated
+        + [params.q_clk, params.q_clkd], jnp.float64))
+    # the EKF runs in f64: at the warm start S is ~1e7-conditioned, where
+    # f32 gains differ between backends by metres of state correction
     state = state._replace(
-        state_cov=state.state_cov.astype(jnp.float32),
-        r_diag=state.r_diag.astype(jnp.float32),
-        innov_sq_sum=state.innov_sq_sum.astype(jnp.float32))
+        state_cov=state.state_cov.astype(jnp.float64),
+        r_diag=state.r_diag.astype(jnp.float64),
+        innov_sq_sum=state.innov_sq_sum.astype(jnp.float64))
 
     tgd_m = eph.tgd * C_LIGHT
     mu_earth = 3.986005e14  # WGS-84 GM (geo/ephemeris.py MU_EARTH)
@@ -250,8 +233,7 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
         LINEARIZE the predicted pseudorange around this head state —
         second-order range error over a 50 ms group is |Δsv|²/2r ≈
         4·10⁻⁴ m, ~10⁻⁵ of the code chip, while removing the per-step
-        emulated-f64 norm/rotation chains that dominated VT wall time on
-        TPU (f64 there is software-emulated)."""
+        f64 norm/rotation chains from the serial loop."""
         est_pos_h = st.total_state[:3]
         clk_bias_h = st.total_state[6]
         sv = sv_pos_vel_clock(eph, st.transmit_time)
@@ -295,7 +277,7 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
         # GLOBAL (all real channels): the sharded path gathers the LOS
         # rows here, once per group
         a32_g = gather(a32)
-        H = jnp.zeros((2 * n_real, 8), jnp.float32)
+        H = jnp.zeros((2 * n_real, 8), jnp.float64)
         H = H.at[:n_real, 0:3].set(-a32_g).at[:n_real, 6].set(1.0)
         H = H.at[n_real:, 3:6].set(-a32_g).at[n_real:, 7].set(1.0)
         cache = (st.transmit_time, vel0, acc0, sv["clk_rate_ms"],
@@ -356,37 +338,14 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
         # --- correlate (fixed-shape bank); block length `num` was sized
         # with the previous code frequency, replica steps at the new one
         # (…:164,227-232) ---
-        if use_pallas:
-            # in-kernel window DMA (ops/pallas_track.correlator_bank_hbm):
-            # the raw chunk stays HBM-resident as (2, R, 128) plane-rows
-            # and each channel's block window is fetched inside the
-            # kernel — no per-channel XLA dynamic-slice extraction (the
-            # dominant term of the measured VT step breakdown)
-            off = (st.ptr - chunk_start).astype(jnp.int32)
-            step_nom = code_freq_basis / fs
-            pos = margin + (st.rem_chip[:, None] + taps[None, :]) / step_nom
-            i0 = jnp.floor(pos).astype(jnp.int32)
-            frac = (pos - jnp.floor(pos)).astype(jnp.float32)
-            carr_fp = jnp.round(st.carr_freq / fs * 4294967296.0
-                                ).astype(jnp.int64).astype(jnp.int32)
-            corr = correlator_bank_hbm(raw, off, i0, frac, st.phase_fp,
-                                       carr_fp, num.astype(jnp.int32),
-                                       chip_tables, ntaps=ntaps, blk=blk,
-                                       remove_dc=params.remove_dc,
-                                       interpret=interpret)
-            num2 = num
-            rem_new = (num.astype(jnp.float64) * (code_freq / fs)
-                       + st.rem_chip - n_chips)
-            phase_new = st.phase_fp + num.astype(jnp.int32) * carr_fp
-        else:
-            def chan_corr(ptr, rem, cfq, cfr, pfp, chips, n):
-                return correlate_block(raw, chunk_start, ptr, rem, cfq, cfr,
-                                       pfp, chips, taps, fs, n_chips, blk,
-                                       "ceil", params.remove_dc, num=n)
+        def chan_corr(ptr, rem, cfq, cfr, pfp, chips, n):
+            return correlate_block(raw, chunk_start, ptr, rem, cfq, cfr,
+                                   pfp, chips, taps, fs, n_chips, blk,
+                                   "ceil", params.remove_dc, num=n)
 
-            corr, num2, rem_new, phase_new = jax.vmap(chan_corr)(
-                st.ptr, st.rem_chip, code_freq, st.carr_freq, st.phase_fp,
-                chip_tables, num)
+        corr, num2, rem_new, phase_new = jax.vmap(chan_corr)(
+            st.ptr, st.rem_chip, code_freq, st.carr_freq, st.phase_fp,
+            chip_tables, num)
         e_i, e_q = corr[:, params.i_early, 0], corr[:, params.i_early, 1]
         p_i, p_q = corr[:, params.i_prompt, 0], corr[:, params.i_prompt, 1]
         l_i, l_q = corr[:, params.i_late, 0], corr[:, params.i_late, 1]
@@ -453,59 +412,53 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
         # GLOBAL measurement vector: the sharded path's per-ms collective
         # — each device contributes its channels' rows and receives all
         if ablate == "corr_only":
-            z = jnp.zeros(2 * n_real, f32)
+            z = jnp.zeros(2 * n_real, jnp.float64)
         else:
-            z = jnp.concatenate([gather(z_pr), gather(z_prr)])  # (2N,) f32
+            z = jnp.concatenate([gather(z_pr), gather(z_prr)]
+                                ).astype(jnp.float64)           # (2N,)
 
-        # --- EKF predict + update (…:388-404) in f32 (measurement/error
-        # magnitudes are metres; the f64 total state only receives the
-        # small correction).  Gated-out channels have both measurement
-        # rows deweighted by r_masked. ---
+        # --- EKF predict + update (…:388-404) in f64.  Gated-out channels
+        # have both measurement rows deweighted by r_masked. ---
         valid_g = gather(valid)
         valid2 = jnp.concatenate([valid_g, valid_g])
-        r_used = jnp.where(valid2, st.r_diag, f32(params.r_masked))
-        P = F32 @ st.state_cov @ F32.T + Q32
+        r_used = jnp.where(valid2, st.r_diag, params.r_masked)
+        P = F @ st.state_cov @ F.T + Qn
         if ablate:                    # any ablation drops the gain chain
-            K = jnp.zeros((8, 2 * n_real), f32)
-            err = jnp.zeros(8, f32)
+            K = jnp.zeros((8, 2 * n_real), jnp.float64)
+            err = jnp.zeros(8, jnp.float64)
         else:
             PHt = P @ H.T
             S = H @ PHt + jnp.diag(r_used)
-            # Jacobi-scaled LU gain solve.  Two hosted-TPU findings from
-            # the e2e chip run (CPU/LAPACK was never affected):
-            # - the f32 Cholesky (assume_a="pos") fused inside this scan
-            #   returns NaN gains at the ~1e7-conditioned warm-start S,
-            #   even though the identical solve is finite in isolation —
-            #   jnp.linalg.solve's partial-pivoting LU is robust there;
-            # - symmetric diagonal scaling S̃ = D^{-1/2}·S·D^{-1/2}
-            #   equalizes the ~1e5 m² pseudorange rows against the
-            #   ~1e-1 (m/s)² rate rows, keeping the f32 factorization
-            #   accurate.  K = PHt·D^{-1/2}·S̃⁻¹·D^{-1/2} is the same
-            #   linear system, just well-scaled.
+            # Jacobi-scaled LU gain solve: S is ~1e7-conditioned at the
+            # warm start; partial-pivoting LU on the symmetrically scaled
+            # S̃ = D^{-1/2}·S·D^{-1/2} (equalizing the ~1e5 m²
+            # pseudorange rows against the ~1e-1 (m/s)² rate rows)
+            # keeps the factorization accurate.
+            # K = PHt·D^{-1/2}·S̃⁻¹·D^{-1/2} is the same linear system,
+            # just well-scaled.
             dsc = jax.lax.rsqrt(jnp.diagonal(S))
             S_t = S * dsc[:, None] * dsc[None, :]
             K = (jnp.linalg.solve(S_t, (PHt * dsc[None, :]).T).T
                  * dsc[None, :])
             err = K @ z
             # Joseph-form covariance update: (I−KH)P(I−KH)ᵀ + K·R·Kᵀ
-            # stays positive-semidefinite under f32 round-off, where the
-            # plain (I−KH)P can go indefinite over ~1e4-step runs and
-            # poison the assume_a="pos" solve above (the extra two 8×8
-            # matmuls are negligible next to the correlators)
-            ikh = jnp.eye(8, dtype=f32) - K @ H
+            # stays positive-semidefinite under round-off, where the plain
+            # (I−KH)P can go indefinite over ~1e4-step runs (the extra
+            # two 8×8 matmuls are negligible next to the correlators)
+            ikh = jnp.eye(8, dtype=jnp.float64) - K @ H
             P = ikh @ P @ ikh.T + (K * r_used[None, :]) @ K.T
-            P = 0.5 * (P + P.T)      # keep symmetric against f32 round-off
-        total = st.total_state + err.astype(jnp.float64)
+            P = 0.5 * (P + P.T)      # keep symmetric against round-off
+        total = st.total_state + err
         # propagate to next epoch (…:440-442)
         total_next = F @ total
 
         # --- adaptive R (…:445-467); gated-out innovations are excluded
         # so a recovering channel re-enters with a sane R ---
-        sq = st.innov_sq_sum + jnp.where(valid2, z * z, f32(0.0))
+        sq = st.innov_sq_sum + jnp.where(valid2, z * z, 0.0)
         cnt = st.step_count + 1
 
         def update_r(_):
-            m = sq / f32(params.r_update_ms)
+            m = sq / float(params.r_update_ms)
             rp = jnp.clip(m[:n_real] * 10.0, params.r_min, params.r_pr_max)
             rr_ = jnp.clip(m[n_real:], params.r_min, params.r_prr_max)
             return jnp.concatenate([rp, rr_]), jnp.zeros_like(sq)
@@ -540,11 +493,8 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
                    # carrNco (trackingVT_POS_updated.m:339-345); phase in
                    # radians from the Q32 accumulator as tracking.py does
                    rem_chip=rem_new,
-                   # NB 2^32 literal: the name Q32 is shadowed by the
-                   # process-noise matrix inside this scope
                    rem_phase=jnp.remainder(
-                       phase_new.astype(jnp.float64)
-                       * (2.0 * jnp.pi / 4294967296.0),
+                       phase_new.astype(jnp.float64) * (2.0 * jnp.pi / Q32),
                        2.0 * jnp.pi),
                    carr_nco=pll,
                    # extrapolated SV position (navSolutionsVT.svxyz_pos,
@@ -560,7 +510,7 @@ def vt_scan(raw, chunk_start, state: VTState, chip_tables, eph: Ephemeris,
                    # 293 m/chip, 1 ms update); diag(H@K) without the
                    # full matmul
                    loop_bw_hz=jnp.sum(H * K.T, axis=1)
-                   / f32(4.0 * 293.0 * 1e-3),
+                   / (4.0 * 293.0 * 1e-3),
                    el=el, az=az, sv_vel=sv_vel32,
                    local_time=local_time, transmit_time=tt,
                    cn0=cn0, valid=valid)
@@ -709,29 +659,11 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
     local, the EKF update runs replicated from all-gathered measurement
     rows — records and solutions are bit-identical to the single-device
     scan at any device count."""
-    from gps_sdr_tpu.tracking import resolve_replica
-
     S = cfg.signal.samples_per_ms
     fs = float(cfg.signal.fs)
     blk = -(-(S * params.pdi_ms + 256) // 128) * 128
-    replica = resolve_replica(params.replica)
-    if replica == "fused":
-        # the whole-chunk fused kernel closes the loop in-kernel; the
-        # VDFLL's code NCO is driven per-ms by the nav solution, so VT
-        # uses the per-block in-kernel-DMA bank instead
-        replica = "pallas"
-    if replica not in ("nco", "pallas"):
-        raise ValueError(f"VT supports replica 'nco' or 'pallas', "
-                         f"got {replica!r}")
-    params = dataclasses.replace(params, replica=replica)
-    margin = 0
-    if replica == "pallas":
-        from gps_sdr_tpu.ops.pallas_track import build_shift_tables_fused
-        tables, margin = build_shift_tables_fused(cfg, prns, blk)
-        chip_tables = jnp.asarray(tables)
-    else:
-        chip_tables = jnp.asarray(
-            np.stack([ca_code_table()[p - 1] for p in prns]), jnp.float32)
+    chip_tables = jnp.asarray(
+        np.stack([ca_code_table()[p - 1] for p in prns]), jnp.float32)
     alpha = jnp.asarray(cfg.cmn.iono_alpha, jnp.float64)
     beta = jnp.asarray(cfg.cmn.iono_beta, jnp.float64)
 
@@ -748,8 +680,7 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
 
     from gps_sdr_tpu.tracking import _stage_raw
 
-    # host ships native ints; cast + layout happen on device (_stage_raw)
-    layout = "rows" if replica == "pallas" else "pairs"
+    # host ships native ints; the cast happens on device (_stage_raw)
     prefetcher = ChunkPrefetcher(source.read_iq_values, slice_axis=0)
     recs: Dict[str, list] = {}
     done = 0
@@ -759,12 +690,7 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
             ptr_min = int(np.min(np.asarray(state.ptr)))
             ptr_max = int(np.max(np.asarray(state.ptr)))
             length = (ptr_max - ptr_min) + nb * params.pdi_ms * S + blk + 64
-            if replica == "pallas":
-                # in-kernel-DMA layout: (2, R, 128) plane-rows with
-                # prediction/row slack (ops/pallas_track.correlator_bank_hbm)
-                length = -(-(length + 2048) // 128) * 128
-            raw = _stage_raw(jnp.asarray(prefetcher.fetch(ptr_min, length)),
-                             layout)
+            raw = _stage_raw(jnp.asarray(prefetcher.fetch(ptr_min, length)))
             if use_mesh:
                 fn = sharded_fns.get(nb)
                 if fn is None:
@@ -772,8 +698,7 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
                         mesh, params, nb, fs, blk,
                         float(cfg.signal.f_if), float(cfg.signal.fc),
                         float(cfg.signal.code_freq_basis),
-                        int(cfg.cmn.day_of_year), margin, n_real,
-                        chip_tables.ndim)
+                        int(cfg.cmn.day_of_year), n_real)
                     sharded_fns[nb] = fn
                 state, rec = fn(raw, jnp.int64(ptr_min), state,
                                 chip_tables, eph_struct, alpha, beta)
@@ -783,7 +708,7 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
                     eph_struct, alpha, beta, params, nb, fs, blk,
                     float(cfg.signal.f_if), float(cfg.signal.fc),
                     float(cfg.signal.code_freq_basis),
-                    int(cfg.cmn.day_of_year), margin)
+                    int(cfg.cmn.day_of_year))
             if n_pad:
                 rec = {k: (v if k in _VT_REC_GLOBAL else v[:, :n_real])
                        for k, v in rec.items()}
@@ -809,8 +734,8 @@ def run_vector_tracking(source: IFSampleSource, cfg: ReceiverConfig,
     pos = cat["total_state"][:, :3]
     vel = cat["total_state"][:, 3:6]
     anchor = np.asarray(init_pos_ecef)
-    # coordinate transforms on the HOST CPU (utils/device.py: f64 math
-    # between device scans must not dispatch to the hosted TPU backend)
+    # coordinate transforms on the host CPU (utils/device.py: small eager
+    # f64 math between device scans costs less there than one launch each)
     from gps_sdr_tpu.utils.device import host_epoch_device
     with host_epoch_device():
         enu = np.asarray(xyz2enu(pos, anchor))

@@ -91,15 +91,10 @@ class TrackParams:
                                    # contiguous slices + linear interp,
                                    # no gathers (the within-block code-
                                    # Doppler drift both neglect is < 0.2
-                                   # samples per ms); "pallas": the shift
-                                   # replica fused into one VMEM-resident
-                                   # TPU kernel (ops/pallas_correlator.py
-                                   # — carrier + mix + taps + reduce in a
-                                   # single pass); "fused": the ENTIRE
-                                   # per-ms loop incl. DLL/PLL in one
-                                   # whole-chunk kernel dispatch
-                                   # (ops/pallas_track.py — the TPU
-                                   # production path, ~2x "pallas")
+                                   # samples per ms)
+
+    def __post_init__(self):
+        object.__setattr__(self, "replica", resolve_replica(self.replica))
 
     @staticmethod
     def epl(cfg: ReceiverConfig, pdi_ms: int = 1, **kw) -> "TrackParams":
@@ -108,7 +103,7 @@ class TrackParams:
         defaults = dict(
             pdi_ms=pdi_ms, taps=(-d, 0.0, d), i_early=0, i_prompt=1,
             i_late=2, dll_freq_sign=-1.0,
-            replica=resolve_replica(cfg.track.replica),
+            replica=cfg.track.replica,
             dll_bw_hz=cfg.track.dll_bw_hz, dll_damping=cfg.track.dll_damping,
             dll_gain=cfg.track.dll_gain, pll_bw_hz=cfg.track.pll_bw_hz,
             pll_damping=cfg.track.pll_damping, pll_gain=cfg.track.pll_gain,
@@ -125,7 +120,7 @@ class TrackParams:
         defaults = dict(
             pdi_ms=pdi_ms, taps=(d, 0.05, -d), i_early=0, i_prompt=1,
             i_late=2, dll_freq_sign=+1.0, rounding="ceil",
-            replica=resolve_replica(cfg.track.replica),
+            replica=cfg.track.replica,
             dll_bw_hz=cfg.track.dll_bw_hz, dll_damping=cfg.track.dll_damping,
             dll_gain=cfg.track.dll_gain, pll_bw_hz=cfg.track.pll_bw_hz,
             pll_damping=cfg.track.pll_damping, pll_gain=cfg.track.pll_gain,
@@ -144,7 +139,7 @@ class TrackParams:
         defaults = dict(
             pdi_ms=pdi_ms, taps=tuple(grid), i_early=2, i_prompt=12,
             i_late=22, dll_freq_sign=+1.0, rounding="ceil",
-            replica=resolve_replica(cfg.track.replica),
+            replica=cfg.track.replica,
             dll_bw_hz=cfg.track.dll_bw_hz, dll_damping=cfg.track.dll_damping,
             dll_gain=cfg.track.dll_gain, pll_bw_hz=cfg.track.pll_bw_hz,
             pll_damping=cfg.track.pll_damping, pll_gain=cfg.track.pll_gain,
@@ -153,30 +148,29 @@ class TrackParams:
         return TrackParams(**defaults)
 
 
-@functools.partial(jax.jit, static_argnames=("layout",))
-def _stage_raw(raw_vals: jnp.ndarray, layout: str) -> jnp.ndarray:
-    """Device-side staging of raw interleaved int IQ values (L, 2):
-    int→f32 cast plus the layout the selected engine wants — "pairs"
-    (L, 2), "planes" (2, L), or "rows" (2, L/128, 128).  Run on device
+@jax.jit
+def _stage_raw(raw_vals: jnp.ndarray) -> jnp.ndarray:
+    """Device-side int→f32 cast of raw interleaved int IQ values (L, 2),
     so the host ships native int8/int16 (io/ifdata.read_iq_values)."""
-    x = raw_vals.astype(jnp.float32)
-    if layout == "pairs":
-        return x
-    if layout == "planes":
-        return x.T
-    return x.T.reshape(2, -1, 128)
+    return raw_vals.astype(jnp.float32)
+
+
+REPLICAS = ("nco", "shift")
 
 
 def resolve_replica(mode: str) -> str:
-    """"auto" → the whole-chunk fused kernel on TPU (ops/pallas_track.py
-    — the entire DLL/PLL loop in one dispatch per chunk, ~2× the
-    per-block kernel), the exact Q32 NCO replica elsewhere (CPU tests
-    run Pallas in interpret mode only where a test asks for it).  The
-    VT driver maps "fused" back to the per-block "pallas" kernel — its
-    per-ms EKF coupling needs the loop outside."""
-    if mode != "auto":
-        return mode
-    return "fused" if jax.default_backend() == "tpu" else "nco"
+    """Correlator replica engine: "auto" → the exact Q32 "nco" replica;
+    "nco" and "shift" select themselves.  The TPU-only "pallas" and
+    "fused" kernels were removed."""
+    if mode == "auto":
+        return "nco"
+    if mode in ("pallas", "fused"):
+        raise ValueError(f"replica={mode!r} was removed: it was a TPU-only "
+                         "kernel; use 'auto', 'nco' or 'shift'")
+    if mode not in REPLICAS:
+        raise ValueError(f"unknown replica {mode!r}; use 'auto', 'nco' or "
+                         "'shift'")
+    return mode
 
 
 def init_track_state(cfg: ReceiverConfig, code_delays: np.ndarray,
@@ -218,24 +212,6 @@ def build_shift_tables(cfg: ReceiverConfig, prns, blk: int):
     return tables.astype(np.float32), margin
 
 
-def build_shift_tables_2d(cfg: ReceiverConfig, prns, blk: int):
-    """(N, nq+16, 128) row-major shift tables for replica="pallas".
-
-    Same contents as :func:`build_shift_tables`, zero-padded and folded
-    into rows of 128 lanes (the kernel's VMEM layout).  The zero pad
-    never affects output: the last flat index a tap window uses is
-    i0 + blk + 1 ≤ blk + margin + ~1.7·fs/fchip + 1 < blk + 2·margin + 8
-    = T_len (rows beyond that are fetched for alignment but discarded)."""
-    tables, margin = build_shift_tables(cfg, prns, blk)
-    ntc = blk // 128 + 16
-    pad = ntc * 128 - tables.shape[1]
-    if pad < 0:
-        raise ValueError(f"shift table rows ({tables.shape[1]}) exceed the "
-                         f"pallas layout ({ntc * 128})")
-    tables = np.pad(tables, ((0, 0), (0, pad)))
-    return tables.reshape(len(tables), ntc, 128), margin
-
-
 def correlate_block(raw: jnp.ndarray, chunk_start, ptr, rem_chip, code_freq,
                     carr_freq, phase_fp, chips: jnp.ndarray,
                     taps: jnp.ndarray, fs: float, n_chips: int, blk: int,
@@ -255,8 +231,7 @@ def correlate_block(raw: jnp.ndarray, chunk_start, ptr, rem_chip, code_freq,
         num = (jnp.ceil(n_exact) if rounding == "ceil"
                else jnp.round(n_exact)).astype(jnp.int64)
     offset = (ptr - chunk_start).astype(jnp.int32)
-    # raw is (L, 2) float32 [re, im] — the hosted TPU backend implements
-    # no complex-typed ops, so the whole path carries I/Q pairs
+    # raw is (L, 2) float32 [re, im]: the capture's interleaved I/Q
     x = jax.lax.dynamic_slice(raw, (offset, jnp.int32(0)), (blk, 2))
     k = jnp.arange(blk, dtype=jnp.int32)
     mask = (k < num.astype(jnp.int32))[:, None]
@@ -269,8 +244,7 @@ def correlate_block(raw: jnp.ndarray, chunk_start, ptr, rem_chip, code_freq,
     # carrier mix — Q32 phase accumulator, exact wrap mod one cycle.
     # θ_k = θ_q + θ_r with k = 128·q + r, both phases exact in Q32, and
     # the carrier formed as a phasor outer product: 455+128 sin/cos
-    # evaluations instead of 58k (unfused wideband transcendentals were
-    # ~75% of the tracking step time on TPU).
+    # evaluations instead of 58k per block.
     carr_fp = jnp.round(carr_freq / fs * Q32).astype(jnp.int64).astype(jnp.int32)
     nq = blk // 128
     to_rad = jnp.float32(2.0 * jnp.pi / Q32)
@@ -310,8 +284,11 @@ def correlate_block(raw: jnp.ndarray, chunk_start, ptr, rem_chip, code_freq,
                + k.astype(jnp.int64)[None, :] * step_fp - 1) >> 32
         chip_idx = jnp.remainder(idx, CODE_LENGTH).astype(jnp.int32)
         code_vals = chips[chip_idx]                           # (ntaps, blk)
+    # HIGHEST: a memory-bound matrix-vector product, so a TF32 pass on
+    # the GPU would buy no time and cost agreement with the f32 reference
     corr = jnp.einsum("tb,bc->tc", code_vals, iq,
-                      preferred_element_type=jnp.float32)
+                      preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
 
     rem_chip_new = num_f * step + rem_chip - n_chips
     phase_new = phase_fp + (num.astype(jnp.int32)) * carr_fp
@@ -328,21 +305,15 @@ def track_scan(raw: jnp.ndarray, chunk_start: jnp.ndarray, state: TrackState,
                margin: int = 0):
     """Track all channels for `n_steps` coherent blocks within one chunk.
 
-    raw          (L, 2) float32 [re, im] chunk shared by all channels;
-                 (N, L, 2) per-channel windows (time-segmented tracking,
-                 where channel pointers span the whole capture); or
-                 (2, L) I/Q planes when params.replica == "pallas"
+    raw          (L, 2) float32 [re, im] chunk shared by all channels,
+                 or (N, L, 2) per-channel windows (time-segmented
+                 tracking, where channel pointers span the whole capture)
     chunk_start  int64 absolute sample index of raw[0] — scalar, or (N,)
                  when raw is per-channel
     chip_tables  (N, 1023) float32 for replica="nco"; the
-                 build_shift_tables[_2d] layout for "shift"/"pallas"
+                 build_shift_tables layout for "shift"
     Returns (new_state, records) with records as (T, N, ...) arrays.
     """
-    if params.replica == "fused":
-        raise ValueError("replica='fused' is a whole-chunk kernel — "
-                         "drive it through run_tracking (or "
-                         "ops.pallas_track.fused_track_chunk directly), "
-                         "not track_scan")
     n_chips = CODE_LENGTH * params.pdi_ms
     taps = jnp.asarray(params.taps, jnp.float64)
     tau1c, tau2c = loop_coefficients(params.dll_bw_hz, params.dll_damping,
@@ -351,62 +322,18 @@ def track_scan(raw: jnp.ndarray, chunk_start: jnp.ndarray, state: TrackState,
                                      params.pll_gain)
     dt = params.loop_dt_s
     sign = params.negate_iq and -1.0 or 1.0
-
-    per_channel_raw = raw.ndim == 3
-    use_pallas = params.replica == "pallas"
-    if use_pallas:
-        if per_channel_raw:
-            raise ValueError("replica='pallas' does not support per-channel "
-                             "raw windows (time-segmented tracking)")
-        from gps_sdr_tpu.ops.pallas_correlator import correlator_bank
-        interpret = jax.default_backend() != "tpu"
-        n_ch = chip_tables.shape[0]
-        nq = blk // 128
-        ntaps = len(params.taps)
-
-    def correlate_pallas(st: TrackState):
-        """Batched fused-kernel correlation; the NCO bookkeeping (num,
-        rem_chip, phase) follows correlate_block exactly."""
-        step = st.code_freq / fs
-        n_exact = (n_chips - st.rem_chip) / step
-        num = (jnp.ceil(n_exact) if params.rounding == "ceil"
-               else jnp.round(n_exact)).astype(jnp.int64)
-        off = (st.ptr - chunk_start).astype(jnp.int32)
-        xw = jax.vmap(lambda o: jax.lax.dynamic_slice(
-            raw, (jnp.int32(0), o), (2, blk)))(off)
-        xw = xw.reshape(n_ch, 2, nq, 128)
-        step_nom = code_freq_basis / fs
-        pos = margin + (st.rem_chip[:, None] + taps[None, :]) / step_nom
-        i0 = jnp.floor(pos).astype(jnp.int32)
-        frac = (pos - jnp.floor(pos)).astype(jnp.float32)
-        carr_fp = jnp.round(st.carr_freq / fs * Q32
-                            ).astype(jnp.int64).astype(jnp.int32)
-        corr = correlator_bank(xw, chip_tables, i0, frac, st.phase_fp,
-                               carr_fp, num.astype(jnp.int32), ntaps=ntaps,
-                               remove_dc=params.remove_dc,
-                               interpret=interpret)
-        num_f = num.astype(jnp.float64)
-        rem_new = num_f * step + st.rem_chip - n_chips
-        phase_new = st.phase_fp + num.astype(jnp.int32) * carr_fp
-        return corr, num, rem_new, phase_new
-
-    def correlate_xla(st: TrackState):
-        raw_axis = 0 if per_channel_raw else None
-        fn = functools.partial(
-            correlate_block, taps=taps, fs=fs, n_chips=n_chips, blk=blk,
-            rounding=params.rounding, remove_dc=params.remove_dc,
-            replica_mode=params.replica, margin=margin,
-            code_freq_basis=code_freq_basis)
-        return jax.vmap(
-            lambda raw_c, start_c, ptr, rem, cf, crf, pfp, chips:
-            fn(raw_c, start_c, ptr, rem, cf, crf, pfp, chips),
-            in_axes=(raw_axis, raw_axis, 0, 0, 0, 0, 0, 0))(
-            raw, chunk_start, st.ptr, st.rem_chip, st.code_freq,
-            st.carr_freq, st.phase_fp, chip_tables)
+    raw_axis = 0 if raw.ndim == 3 else None
+    fn = functools.partial(
+        correlate_block, taps=taps, fs=fs, n_chips=n_chips, blk=blk,
+        rounding=params.rounding, remove_dc=params.remove_dc,
+        replica_mode=params.replica, margin=margin,
+        code_freq_basis=code_freq_basis)
+    correlate = jax.vmap(fn, in_axes=(raw_axis, raw_axis, 0, 0, 0, 0, 0, 0))
 
     def scan_step(st: TrackState, _):
-        corr, num, rem_new, phase_new = (
-            correlate_pallas(st) if use_pallas else correlate_xla(st))
+        corr, num, rem_new, phase_new = correlate(
+            raw, chunk_start, st.ptr, st.rem_chip, st.code_freq,
+            st.carr_freq, st.phase_fp, chip_tables)
         corr = corr * jnp.float32(sign)                 # (N, ntaps, 2)
         e_i, e_q = corr[:, params.i_early, 0], corr[:, params.i_early, 1]
         p_i, p_q = corr[:, params.i_prompt, 0], corr[:, params.i_prompt, 1]
@@ -547,27 +474,8 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
     # blk multiple of 128: the carrier outer-product factorization needs it
     blk = -(-(S * params.pdi_ms + 256) // 128) * 128
     margin = 0
-    if params.replica == "fused" and params.pdi_ms > 2:
-        # long coherent blocks overflow the fused kernel's VMEM window
-        # budget (double-buffered (2, 2, W, 128) + temporaries); the
-        # per-block Pallas path handles them
-        params = dataclasses.replace(params, replica="pallas")
-    use_fused = params.replica == "fused"
     if params.replica == "shift":
         chip_tables, margin = build_shift_tables(cfg, prns, blk)
-        chip_tables = jnp.asarray(chip_tables)
-    elif params.replica == "pallas":
-        if per_channel_io:
-            raise ValueError("replica='pallas' does not support "
-                             "per-channel windows")
-        chip_tables, margin = build_shift_tables_2d(cfg, prns, blk)
-        chip_tables = jnp.asarray(chip_tables)
-    elif use_fused:
-        if per_channel_io:
-            raise ValueError("replica='fused' does not support "
-                             "per-channel windows")
-        from gps_sdr_tpu.ops.pallas_track import build_shift_tables_fused
-        chip_tables, margin = build_shift_tables_fused(cfg, prns, blk)
         chip_tables = jnp.asarray(chip_tables)
     else:
         chip_tables = jnp.asarray(
@@ -591,15 +499,8 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
             "(per-channel raw windows are host-gathered; the sharded "
             "scan needs one replicated chunk) — running single-device",
             stacklevel=2)
-    if mesh is not None and getattr(mesh, "size", 1) > 1 and use_fused:
-        import warnings
-        warnings.warn(
-            "run_tracking: replica='fused' runs single-device (the "
-            "whole-chunk kernel is one dispatch; shard channels by "
-            "splitting the PRN list across Receivers) — mesh ignored",
-            stacklevel=2)
     use_mesh = (mesh is not None and getattr(mesh, "size", 1) > 1
-                and not per_channel_io and not use_fused)
+                and not per_channel_io)
     n_pad = 0
     if use_mesh:
         from gps_sdr_tpu.parallel.tracking import (pad_channels,
@@ -607,10 +508,8 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
         state, chip_tables, n_pad = pad_channels(state, chip_tables,
                                                  mesh.size)
         sharded_fns: Dict[int, object] = {}
-    layout = {"pallas": "planes", "fused": "rows"}.get(params.replica,
-                                                       "pairs")
-    # host ships the native ints; the cast + layout happen on device
-    # (_stage_raw) — host→device traffic was the measured e2e bottleneck
+    # host ships the native ints (a quarter of the f32 bytes); the cast
+    # happens on device (_stage_raw)
     read_fn = source.read_iq_values
     # overlap the next chunk's host-side read with the device scan of
     # the current one (the scan dispatch is async; SURVEY.md §2.9 PP)
@@ -627,8 +526,6 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
             ptr_min = int(np.min(ptrs))
             ptr_max = int(np.max(ptrs))
             win = nb * params.pdi_ms * S + blk + 64
-            if use_fused:
-                win += 2048                # DMA prediction + row slack
             if per_channel_io:
                 # channels far apart (time-segmented): per-channel windows
                 raw = jnp.asarray(np.stack([
@@ -637,50 +534,15 @@ def run_tracking(source: IFSampleSource, cfg: ReceiverConfig, prns,
                 start = jnp.asarray(ptrs, jnp.int64)
             else:
                 length = (ptr_max - ptr_min) + win
-                if use_fused:              # plane-rows layout (2, R, 128)
-                    length = -(-length // 128) * 128
                 raw = _stage_raw(jnp.asarray(prefetcher.fetch(
-                    ptr_min, length)), layout)
+                    ptr_min, length)))
                 start = jnp.int64(ptr_min)
-            if use_fused:
-                from gps_sdr_tpu.ops.pallas_track import (
-                    fused_track_chunk, pack_state, state_from_packed,
-                    unpack_records)
-                cfb = float(cfg.signal.code_freq_basis)
-                tau_c = loop_coefficients(params.dll_bw_hz,
-                                          params.dll_damping,
-                                          params.dll_gain)
-                tau_r = loop_coefficients(params.pll_bw_hz,
-                                          params.pll_damping,
-                                          params.pll_gain)
-                scal_i, scal_f = pack_state(state, cfb, fs, start)
-                packed = fused_track_chunk(
-                    raw, scal_i, scal_f, chip_tables,
-                    n_steps=nb, blk=blk, ntaps=len(params.taps),
-                    taps=params.taps,
-                    epl=(params.i_early, params.i_prompt, params.i_late),
-                    rounding=params.rounding,
-                    sign=-1.0 if params.negate_iq else 1.0,
-                    remove_dc=params.remove_dc, fs=fs,
-                    code_freq_basis=cfb,
-                    n_chips=CODE_LENGTH * params.pdi_ms, margin=margin,
-                    tau_c=tau_c, tau_r=tau_r, dt=params.loop_dt_s,
-                    dll_freq_sign=params.dll_freq_sign,
-                    interpret=jax.default_backend() != "tpu")
-                s_ref = int(round(CODE_LENGTH * params.pdi_ms * fs / cfb))
-                rec, _, _, _ = unpack_records(
-                    packed, len(params.taps), s_ref, cfb,
-                    state.carr_freq_basis, start)
-                state = state_from_packed(state, packed,
-                                          len(params.taps), cfb)
-                state = state._replace(ptr=state.ptr + jnp.int64(ptr_min))
-            elif use_mesh:
+            if use_mesh:
                 fn = sharded_fns.get(nb)
                 if fn is None:
                     fn = sharded_track_scan(
                         mesh, params, nb, fs, blk,
-                        float(cfg.signal.code_freq_basis), margin,
-                        chip_tables.ndim)
+                        float(cfg.signal.code_freq_basis), margin)
                     sharded_fns[nb] = fn
                 state, rec = fn(raw, start, state, chip_tables)
             else:

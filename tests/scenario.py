@@ -2,7 +2,7 @@
 reference's surveyed ground-truth location observing 5 GPS SVs whose
 signals are generated from broadcast ephemerides with full transmit-time
 geometry.  Expensive artifacts (capture file, tracking records) are cached
-under .cache/ keyed by scenario parameters."""
+under .cache/; stage artifacts are keyed on the capture's identity."""
 
 from __future__ import annotations
 
@@ -98,19 +98,33 @@ def scenario_path() -> str:
 
 
 def build_scenario_source() -> IFSampleSource:
-    """Generate (or load cached) capture + return a sample source."""
+    """Generate (or load cached) capture + return a sample source.
+
+    Test workers share the cache: one builds the capture under a lock
+    while the others wait, and the file appears only once complete.  The
+    shared eph-tracking and decode artifacts are built here too, with the
+    scenario's parameters (31.8 s of tracking, decode from 200 ms): their
+    stems do not name those parameters, so a test that decodes with
+    other ones first would otherwise decide them for every later test."""
+    from gps_sdr_tpu.pipeline import Receiver
+    from gps_sdr_tpu.utils.atomic import file_lock
+
     path = scenario_path()
     n_bytes = DURATION_MS * CFG.signal.samples_per_ms * 2
-    if not (os.path.exists(path) and os.path.getsize(path) == n_bytes):
-        ephs = visible_constellation(len(SCN_PRNS))
-        svs = [GeometrySV(prn=p, eph=e, amplitude=a)
-               for p, e, a in zip(SCN_PRNS, ephs, AMPLITUDES)]
-        gs = GeometrySignal(CFG, svs, np.asarray(llh2xyz(np.asarray(TRUTH_LLH))),
-                            TOW0, clk_bias_s=CLK_BIAS_S,
-                            clk_drift_sps=CLK_DRIFT_SPS,
-                            atmosphere=True,
-                            iono_alpha=CFG.cmn.iono_alpha,
-                            iono_beta=CFG.cmn.iono_beta,
-                            doy=CFG.cmn.day_of_year)
-        gs.write_file(path, DURATION_MS, noise_std=NOISE_STD, seed=11)
-    return IFSampleSource(path, CFG.file)
+    with file_lock(path):
+        if not (os.path.exists(path) and os.path.getsize(path) == n_bytes):
+            ephs = visible_constellation(len(SCN_PRNS))
+            svs = [GeometrySV(prn=p, eph=e, amplitude=a)
+                   for p, e, a in zip(SCN_PRNS, ephs, AMPLITUDES)]
+            gs = GeometrySignal(
+                CFG, svs, np.asarray(llh2xyz(np.asarray(TRUTH_LLH))), TOW0,
+                clk_bias_s=CLK_BIAS_S, clk_drift_sps=CLK_DRIFT_SPS,
+                atmosphere=True, iono_alpha=CFG.cmn.iono_alpha,
+                iono_beta=CFG.cmn.iono_beta, doy=CFG.cmn.day_of_year)
+            gs.write_file(path, DURATION_MS, noise_std=NOISE_STD, seed=11)
+        src = IFSampleSource(path, CFG.file)
+        rx = Receiver(CFG, src, artifact_dir=CACHE_DIR, mesh=None)
+        if not os.path.exists(os.path.join(CACHE_DIR, f"eph_{rx.key}.pkl")):
+            rx.track_for_eph(n_ms=DURATION_MS - 200)
+            rx.decode(start_offset_ms=200)
+    return src

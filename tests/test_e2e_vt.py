@@ -89,32 +89,6 @@ def test_vt_legacy_params():
     assert p.taps == (0.5, 0.0, -0.5)
 
 
-def test_vt_pallas_replica_converges():
-    """The fused-kernel correlator through the whole VDFLL (interpret
-    mode on CPU; the same kernel lowers to Mosaic on the chip): the EKF
-    holds the same fix as the exact-NCO replica."""
-    import numpy as np
-
-    from gps_sdr_tpu.pipeline import Receiver
-
-    src = scenario.build_scenario_source()
-    rx = Receiver(scenario.CFG, src, artifact_dir=scenario.CACHE_DIR)
-    truth = np.asarray(llh2xyz(np.asarray(scenario.TRUTH_LLH)))
-    init = truth + np.array([3000.0, -2000.0, 1500.0])
-    trk, sol = rx.vt_position(n_ms=600, ct_n_ms=4000, init_pos_ecef=init,
-                              replica="pallas")
-    _, sol_nco = rx.vt_position(n_ms=600, ct_n_ms=4000, init_pos_ecef=init,
-                                replica="nco")
-    err = np.linalg.norm(sol.usr_pos - truth, axis=1)
-    err_nco = np.linalg.norm(sol_nco.usr_pos - truth, axis=1)
-    # same fix quality as the exact-NCO replica over the settled tail
-    # (the EKF is still converging from the CT handoff this early)
-    m_p, m_n = np.median(err[300:]), np.median(err_nco[300:])
-    assert m_p < m_n + 10.0, (m_p, m_n)
-    d = np.linalg.norm(sol.usr_pos - sol_nco.usr_pos, axis=1)
-    assert np.median(d[300:]) < 12.0, np.median(d[300:])
-
-
 def test_vt_atmosphere_cadence_any_chunking():
     """Regression: the iono/tropo/el/az refresh must keep its
     ~corr_update_ms cadence for ANY chunk length / kepler_update_ms,

@@ -37,10 +37,9 @@ def meshed(single, tmp_path_factory):
     artifacts are copied over so only acquisition + CT tracking +
     positioning re-run (sharded)."""
     mdir = tmp_path_factory.mktemp("mesh_artifacts")
-    for stem in (f"tckeph_{scenario.CFG.file.name}.npz",
-                 f"eph_{scenario.CFG.file.name}.pkl",
-                 f"countinx_{scenario.CFG.file.name}.npz",
-                 f"nacquired_{scenario.CFG.file.name}_0.npz"):
+    for stem in (f"tckeph_{single.key}.npz", f"eph_{single.key}.pkl",
+                 f"countinx_{single.key}.npz",
+                 f"nacquired_{single.key}_0.npz"):
         p = single._path(stem)
         if p is not None and shutil.os.path.exists(p):
             shutil.copy(p, mdir / stem)

@@ -2,9 +2,9 @@
 
 Round 1's tests all ran at 4–5 MHz; nothing exercised the actual
 production workload shape — 58 MHz sampling, IF 4.58 MHz, int8
-interleaved IQ, a non-zero skip — end to end on the TPU-eligible code
-paths.  These tests do, on a short synthetic capture (7 MB) with the
-golden Opensky PRN set.
+interleaved IQ, a non-zero skip — end to end on the production code
+paths (circular acquisition grid, `nco` tracking engine).  These tests
+do, on a short synthetic capture (7 MB) with the golden Opensky PRN set.
 
 The second half is the golden-artifact harness: when the real
 `Opensky.bin` capture is present (env GPS_SDR_OPENSKY_BIN or
@@ -55,10 +55,10 @@ def opensky_shaped(tmp_path_factory):
 
 
 def test_acquisition_at_full_rate(opensky_shaped):
-    """The pow2 real-pair grid (the TPU path) on the true 58 MHz shape:
-    all 8 golden PRNs at their delays/Dopplers/fine frequencies."""
+    """The circular acquisition grid on the true 58 MHz shape: all 8
+    golden PRNs at their delays/Dopplers/fine frequencies."""
     cfg, src, svs = opensky_shaped
-    acq = run_acquisition(src, cfg, prns=GOLDEN_PRNS, fft_mode="pow2")
+    acq = run_acquisition(src, cfg, prns=GOLDEN_PRNS)
     assert set(int(s) for s in acq.sv) == set(GOLDEN_PRNS)
     S = cfg.signal.samples_per_ms
     for sv in svs:
@@ -84,7 +84,7 @@ def test_tracking_at_full_rate(opensky_shaped):
     """20 ms of 3-tap tracking at 58 MHz: prompt dominates E/L and the
     block lengths stay at 58000±jitter."""
     cfg, src, svs = opensky_shaped
-    acq = run_acquisition(src, cfg, prns=GOLDEN_PRNS, fft_mode="pow2")
+    acq = run_acquisition(src, cfg, prns=GOLDEN_PRNS)
     st = init_track_state(cfg, acq.code_delay, acq.fine_freq_hz)
     rec, _ = run_tracking(src, cfg, [int(p) for p in acq.sv], st,
                           TrackParams.epl(cfg), 18)
@@ -182,7 +182,7 @@ def test_vt_correct_at_full_rate(opensky_geometry):
 
     cfg, src, gs, truth = opensky_geometry
     prns = list(scenario.SCN_PRNS)
-    acq = run_acquisition(src, cfg, prns=prns, fft_mode="pow2")
+    acq = run_acquisition(src, cfg, prns=prns)
     assert set(int(s) for s in acq.sv) == set(prns)
     order = [acq.channel_index(p) for p in prns]
     st = init_track_state(cfg, acq.code_delay[order],
@@ -191,8 +191,7 @@ def test_vt_correct_at_full_rate(opensky_geometry):
     rec, _ = run_tracking(src, cfg, prns, st, TrackParams.epl(cfg),
                           settle_ms)
 
-    params = VTParams(replica="nco",
-                      remove_dc=cfg.file.data_precision == 2)
+    params = VTParams(remove_dc=cfg.file.data_precision == 2)
     slot = settle_ms - 1
     fs = cfg.signal.fs
     tt0 = np.empty(len(prns))

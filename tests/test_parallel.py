@@ -9,12 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.acquisition import (acquisition_power_grid,
-                                     acquisition_power_grid_real, next_pow2)
+from gps_sdr_tpu.acquisition import acquisition_power_grid
 from gps_sdr_tpu.config import FileConfig, ReceiverConfig, SignalConfig
 from gps_sdr_tpu.ops.cacode import ca_code_table
 from gps_sdr_tpu.parallel import (make_mesh, sharded_acquisition_power,
-                                  sharded_acquisition_power_real,
                                   sharded_track_scan,
                                   sharded_wls_normal_equations)
 from gps_sdr_tpu.tracking import TrackParams, init_track_state, track_scan
@@ -44,36 +42,9 @@ def test_sharded_acquisition_matches_single_device():
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-2)
 
 
-@pytest.mark.parametrize("shard_axis", ["prn", "doppler"])
-def test_sharded_real_grid_matches_single_device(shard_axis):
-    """The TPU-executable real-pair pow2 grid, sharded vs unsharded.
-
-    P=13 / F=7 are deliberately NOT multiples of the mesh size so the
-    padding path is covered on both axes."""
-    rng = np.random.default_rng(3)
-    S = CFG.signal.samples_per_ms
-    B, F, P = 2, 7, 13
-    fft_len = next_pow2(2 * S)
-    blocks2 = jnp.asarray(rng.normal(size=(B, 2 * S, 2)).astype(np.float32))
-    carriers2 = jnp.asarray(rng.normal(size=(F, 2 * S, 2)
-                                       ).astype(np.float32))
-    cf = np.fft.fft(rng.choice([-1.0, 1.0], size=(P, S)), n=fft_len)
-    code_fft = jnp.asarray(np.stack([cf.real, cf.imag], -1
-                                    ).astype(np.float32))
-    ref = np.asarray(acquisition_power_grid_real(
-        blocks2, carriers2, code_fft, fft_len, S, prn_chunk=2))
-    mesh = make_mesh(8)
-    fn = sharded_acquisition_power_real(mesh, prn_chunk=2,
-                                        shard_axis=shard_axis)
-    out = np.asarray(fn(blocks2, carriers2, code_fft, fft_len, S))
-    assert out.shape == (P, F, S)
-    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-2)
-
-
-def test_run_acquisition_composes_with_sharded_real_grid():
-    """run_acquisition(power_fn=…) must use the pow2/real branch —
-    the sharded search must find the same SVs/delays as the unsharded
-    pow2 search (VERDICT round 1, missing #1)."""
+def test_run_acquisition_composes_with_sharded_grid():
+    """run_acquisition(power_fn=…) with the PRN-sharded circular grid
+    must find the same SVs/delays as the unsharded search."""
     from gps_sdr_tpu.acquisition import run_acquisition
     from gps_sdr_tpu.io.ifdata import IFSampleSource
     from gps_sdr_tpu.io.synthetic import SyntheticSV, generate_if_samples
@@ -91,10 +62,10 @@ def test_run_acquisition_composes_with_sharded_real_grid():
     source = IFSampleSource.from_array(
         np.clip(np.round(vals), -127, 127).astype(np.int8), cfg.file)
 
-    ref = run_acquisition(source, cfg, fft_mode="pow2")
+    ref = run_acquisition(source, cfg)
     mesh = make_mesh(8)
-    fn = sharded_acquisition_power_real(mesh)
-    got = run_acquisition(source, cfg, fft_mode="pow2", power_fn=fn)
+    fn = sharded_acquisition_power(mesh)
+    got = run_acquisition(source, cfg, power_fn=fn)
     assert set(got.sv) == set(ref.sv) == {3, 16}
     for p in (3, 16):
         ir, ig = ref.channel_index(p), got.channel_index(p)

@@ -45,7 +45,8 @@ def test_report_writes_all_outputs(tmp_path):
                - scenario.BASE_EPH["sqrta"]) < 1e-3  # LSB quantization
     assert float(row["toe"][2]) == scenario.BASE_EPH["toe"]
     # the nAcquired-style artifact was persisted by the usable-SV stage
-    z = np.load(os.path.join(scenario.CACHE_DIR, "nacquired_geo_scn_0.npz"))
+    z = np.load(os.path.join(scenario.CACHE_DIR,
+                             f"nacquired_{rx.key}_0.npz"))
     assert list(z["sv"]) == list(scenario.SCN_PRNS)
     assert z["snr_db"].shape == (5,)
 

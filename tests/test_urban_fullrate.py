@@ -1,6 +1,6 @@
 """Urban configuration at its REAL front-end shape (round-2 VERDICT
 missing #2): 26 MHz int16 IQ, zero IF — exercising the fftshift /
-negative-frequency fine-Doppler branch (acquisition.py pow2+IQ path,
+negative-frequency fine-Doppler branch (acquisition.py IQ path,
 reference acquisition.m:109-119) and tracking lock at the full rate.
 
 The shipped Urban `.mat` artifacts are too trimmed to replay positioning

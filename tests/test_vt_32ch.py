@@ -28,12 +28,12 @@ def runs():
             int(cfg.cmn.day_of_year))
     raw = jnp.asarray(raw_np)
     _, ref = vt_scan(raw, jnp.int64(0), state, jnp.asarray(tables), eph,
-                     alpha, beta, params, n_steps, *args, 0)
+                     alpha, beta, params, n_steps, *args)
     mesh = make_mesh()
     st_p, tab_p, eph_p, n_pad = pad_vt_state(state, jnp.asarray(tables),
                                              eph, mesh.size)
     assert n_pad == 0                     # 32 divides 8
-    fn = sharded_vt_scan(mesh, params, n_steps, *args, 0, N_CH, 2)
+    fn = sharded_vt_scan(mesh, params, n_steps, *args, N_CH)
     _, rec = fn(raw, jnp.int64(0), st_p, tab_p, eph_p, alpha, beta)
     return ({k: np.asarray(v) for k, v in ref.items()},
             {k: np.asarray(v) for k, v in rec.items()}, n_steps)
